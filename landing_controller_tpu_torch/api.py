@@ -2,9 +2,13 @@
 
 Example::
 
-    solver = LandingSolver("srbm_lcp", guess="ballistic")   # on the GPU
-    sol = solver.solve(q_init, qd_init)                     # one scenario
-    sols = solver.solve_batch(q_inits, qd_inits)            # (B, 6) batch
+    solver = LandingSolver()                        # kinodynamic, on the GPU
+    sol = solver.solve(q_init, qd_init)             # one scenario
+    sols = solver.solve_batch(q_inits, qd_inits)    # (B, 6) batch
+
+``LandingSolver(kind)`` solves ``kinodynamic`` (the production problem, the
+default), ``srbm_lcp``, ``sliding``, ``ccc`` and ``contact_scheduled`` on the
+stage-structured ``cri`` path.
 
 The solver runs on the card unless constructed with ``device="cpu"``.
 """
@@ -18,11 +22,26 @@ import torch
 
 from ._tree import tree_map
 from .models import get_robot_params
-from .problems.landing import LandingProblem, srbm_lcp_problem
+from .dynamics.legs import leg_torques
+from .problems.landing import (
+    LandingProblem,
+    ccc_problem,
+    contact_scheduled_problem,
+    kinodynamic_problem,
+    sliding_problem,
+    srbm_lcp_problem,
+)
 from .solver.ip import IPConfig, solve
 from .solver.scaling import ScaledNLP, landing_z_scale, scale_problem
 from .solver.structured import make_structured_newton_step
-from .warmstart.reference import ballistic_guess, initial_guess_from_reference, srbm_lcp_params
+from .warmstart.reference import (
+    ballistic_guess,
+    ccc_params,
+    contact_scheduled_params,
+    initial_guess_from_reference,
+    kinodynamic_params,
+    srbm_lcp_params,
+)
 
 # the committed warm-start artifact, read as a data file by path
 DEFAULT_NN_PATH = os.path.join(
@@ -34,9 +53,9 @@ DEFAULT_NN_PATH = os.path.join(
 @dataclasses.dataclass(frozen=True)
 class LandingSolution:
     X: torch.Tensor  # (B, N, 12) base trajectory
-    jpos: torch.Tensor  # (B, N-1, 0) for srbm_lcp
+    jpos: torch.Tensor  # (B, N-1, 12) joint angles (empty for the srbm family)
     U: torch.Tensor  # (B, N-1, 24) foot positions + GRFs
-    tau: torch.Tensor  # (B, N-1, 12) zeros for srbm_lcp
+    tau: torch.Tensor  # (B, N-1, 12) Jacobian-transpose joint torques (zeros for the srbm family)
     z: torch.Tensor  # flat solution (reference layout)
     converged: torch.Tensor
     iterations: torch.Tensor
@@ -50,8 +69,15 @@ class LandingSolution:
     y: torch.Tensor
 
 
-_PROBLEMS = {"srbm_lcp": (srbm_lcp_problem, srbm_lcp_params)}
-_NOT_PORTED = ("kinodynamic", "kinodynamic_voltage", "ccc", "contact_scheduled", "sliding")
+_PROBLEMS = {
+    "kinodynamic": (kinodynamic_problem, kinodynamic_params),
+    "srbm_lcp": (srbm_lcp_problem, srbm_lcp_params),
+    "ccc": (ccc_problem, ccc_params),
+    "contact_scheduled": (contact_scheduled_problem, contact_scheduled_params),
+    "sliding": (sliding_problem, srbm_lcp_params),
+}
+# voltage rows couple adjacent knots' jpos: dense KKT path only, not ported
+_NOT_PORTED = ("kinodynamic_voltage",)
 
 
 def resolve_device(device) -> torch.device:
@@ -63,11 +89,11 @@ def resolve_device(device) -> torch.device:
 
 
 class LandingSolver:
-    """Landing trajectory optimizer for the srbm_lcp problem family."""
+    """Landing trajectory optimizer for one problem family."""
 
     def __init__(
         self,
-        kind: str = "srbm_lcp",
+        kind: str = "kinodynamic",
         n_knots: int = 21,
         robot: str = "mc3D",
         config: IPConfig | None = None,
@@ -131,6 +157,7 @@ class LandingSolver:
         self._relax_mask = torch.as_tensor(self.problem.relax_mask(), dtype=dtype,
                                            device=self.device)
         self._nn = None
+        self._nn_path = nn_path
         if guess == "nn" or "nn" in retry_chain:
             from .warmstart.nn import N_KNOTS, load_warmstart
 
@@ -204,8 +231,12 @@ class LandingSolver:
         z = snlp.from_scaled(res.z)
         v = prob.unpack(z)
         lam_u, y_u = snlp.duals_from_scaled(res.lam, res.y)
+        if prob.config.kinodynamic:
+            tau = leg_torques(self.robot_params, v.jpos, v.X[:, :-1, 3:6], v.U[..., 12:])
+        else:
+            tau = z.new_zeros(v.U.shape[:-1] + (12,))
         return LandingSolution(
-            X=v.X, jpos=v.jpos, U=v.U, tau=z.new_zeros(v.U.shape[:-1] + (12,)), z=z,
+            X=v.X, jpos=v.jpos, U=v.U, tau=tau, z=z,
             converged=res.converged, iterations=res.iterations, kkt_error=res.kkt_error,
             constr_viol=res.constr_viol, cost=res.cost,
             s=snlp.slacks_from_scaled(res.s), lam=lam_u, y=y_u,
@@ -250,6 +281,24 @@ class LandingSolver:
     def init_state(self, q_init, qd_init, variant=None):
         """Fresh IPState for (B, 6) scenarios without stepping."""
         return self.init_lanes(q_init, qd_init, variant)[1]
+
+    def warm_variant(self, mu_init: float = 1e-2, **cfg_overrides) -> "LandingSolver":
+        """A clone of this solver tuned for primal warm starts: a
+        near-feasible z0 does not need the full cold barrier path, so the
+        clone restarts at a reduced ``mu_init``."""
+        cfg = dataclasses.replace(self.config, mu_init=mu_init, **cfg_overrides)
+        return LandingSolver(
+            self.kind,
+            n_knots=self.problem.config.n_knots,
+            robot=self.robot,
+            config=cfg,
+            dtype=self.dtype,
+            theta_overrides=self.theta_overrides,
+            guess=self.guess,
+            retry_guess=self.retry_guess,
+            device=self.device,
+            nn_path=self._nn_path,
+        )
 
     def solve(self, q_init, qd_init, z0=None, warm=None) -> LandingSolution:
         """Solve one scenario: q_init, qd_init (6,).  warm: unscaled

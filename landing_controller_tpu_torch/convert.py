@@ -17,12 +17,15 @@ from .warmstart.nn import build_mlp, stats_from_numpy
 
 def landing_params_from_numpy(params: dict, dtype=torch.float64, device="cpu") -> LandingParams:
     """{field: array} -> LandingParams.  Unbatched arrays (x_ref of shape
-    (N, 12)) get a leading batch dimension of 1; keys that are not
-    LandingParams fields (e.g. the JAX side's unused running-cost weights,
-    None) are ignored."""
+    (N, 12)) get a leading batch dimension of 1.  The optional fields (the
+    running-cost weights qx, qc, qf and the contact schedule cs) are carried
+    where the dict has them and stay None where it has not or holds None;
+    keys that are not LandingParams fields are ignored."""
     unbatched = np.ndim(params["x_ref"]) == 2
     out = {}
     for f in dataclasses.fields(LandingParams):
+        if params.get(f.name) is None and f.default is None:
+            continue
         t = torch.as_tensor(np.array(params[f.name]), dtype=dtype, device=device)
         out[f.name] = t[None] if unbatched else t
     return LandingParams(**out)

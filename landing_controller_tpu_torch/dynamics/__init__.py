@@ -1,1 +1,1 @@
-"""SRBM dynamics and rotation kinematics."""
+"""SRBM dynamics, rotation kinematics and closed-form leg kinematics."""

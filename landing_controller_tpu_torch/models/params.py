@@ -2,9 +2,9 @@
 
 The port's own copy of the mc3D / mcv3D parameter sets of the reference
 registry (dynamics-utilities/get_robot_params.m:50-190).  Only the fields the
-SRBM landing path needs are kept: link geometry, masses and spatial inertias
-(for the composite-inertia SRBM constants in :mod:`.model`) and the SRBM hip
-locations.
+landing problems need are kept: link geometry (with the derived leg link
+lengths of the closed-form kinematics), masses and spatial inertias (for the
+composite-inertia SRBM constants in :mod:`.model`) and the SRBM hip locations.
 """
 
 from __future__ import annotations
@@ -42,6 +42,23 @@ class RobotParams:
     knee_location: np.ndarray  # (3,) hip->knee offset
     foot_location: np.ndarray  # (3,) knee->foot offset
     hip_srbm_location: np.ndarray  # (4,3) SRBM hip positions
+    knee_link_y_offset: float = 0.004  # l_4 in the analytic Jacobian (get_foot_jacobians_mc.m:8)
+
+    # Derived leg link lengths used by closed-form kinematics:
+    @property
+    def l1(self) -> float:
+        """Ab/ad link length = hipLocation(2) (get_foot_jacobians_mc.m:5)."""
+        return float(self.hip_location[1])
+
+    @property
+    def l2(self) -> float:
+        """Upper (hip) link length = -kneeLocation(3)."""
+        return float(-self.knee_location[2])
+
+    @property
+    def l3(self) -> float:
+        """Lower (knee) link length = -footLocation(3)."""
+        return float(-self.foot_location[2])
 
 
 def _mc3d() -> RobotParams:

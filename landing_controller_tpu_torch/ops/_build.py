@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 repository's ``build/kernels/`` directory and loaded with ``ctypes``.  The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.
+library's file name carries a hash of its source and of every header the
+source includes from ``csrc/``, so an edited source or header is rebuilt and
+a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +26,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 # shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("qd_inverse", "chol_inverse")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
 build_logs: dict = {}
@@ -37,36 +42,72 @@ def _nvcc() -> str:
     return path
 
 
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and, recursively, the files it includes by
+    ``#include "..."`` (paths relative to ``csrc/``), in a fixed order."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC_DIR, rel)) as f:
+            todo += sorted(_INCLUDE.findall(f.read()), reverse=True)
+    return [os.path.join(CSRC_DIR, rel) for rel in seen]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def _build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns nvcc's
-    output ("" when nothing was built)."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return ""
+def _start_build(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library exists; returns
+    (process, temporary output path) or None."""
+    if os.path.exists(library_path(name)):
+        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish_build(name: str, started) -> str:
+    """Wait for a build; returns nvcc's output ("" when nothing was built)."""
+    if started is None:
+        return ""
+    proc, tmp = started
+    out, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return proc.stdout
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, library_path(name))  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load_libraries(names=KERNELS) -> list:
+    """The loaded shared libraries for ``csrc/<name>.cu``, each built if
+    needed, all compilers started together; the compiler's output is kept in
+    ``build_logs[name]``."""
+    with _lock:
+        missing = [n for n in names if n not in _loaded]
+        started = {n: _start_build(n) for n in missing}
+        errors = []
+        for n in missing:
+            try:
+                build_logs[n] = _finish_build(n, started[n])
+                _loaded[n] = ctypes.CDLL(library_path(n))
+            except RuntimeError as err:  # let the other compilers finish first
+                errors.append(err)
+        if errors:
+            raise errors[0]
+        return [_loaded[n] for n in names]
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library for ``csrc/<name>.cu``, built if needed;
-    the compiler's output is kept in ``build_logs[name]``."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            build_logs[name] = _build(name)
-            lib = _loaded[name] = ctypes.CDLL(library_path(name))
-        return lib
+    """The loaded shared library for ``csrc/<name>.cu``, built if needed."""
+    return load_libraries((name,))[0]

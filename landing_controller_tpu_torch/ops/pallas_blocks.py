@@ -1,4 +1,4 @@
-"""Batched quasi-definite block inverse: the Hopper kernel and its plain version.
+"""Batched block inverses: the Hopper kernels and their plain versions.
 
 ``qd_inverse(S, np_, nd)`` inverts a batch of KKT blocks
 S = [[P, B'], [B, -D]] (P, D positive definite) by the two-Cholesky Schur
@@ -19,7 +19,16 @@ kernel ``_qd_inverse_kernel`` (landing_controller_tpu/ops/pallas_blocks.py:111).
   follows the JAX ``qd_inverse_ref``: a failed Cholesky yields NaN inverses
   and ok = False.
 
-``qd_inverse.launches`` counts kernel launches (CPU calls do not count).
+``chol_inverse(A)`` inverts a batch of symmetric positive definite blocks
+(m, n, n) by a Cholesky factorization and returns ``(Ainv, ok)``.  It
+replaces the Pallas TPU kernel ``_chol_inverse_kernel``
+(landing_controller_tpu/ops/pallas_blocks.py:137), with the same split: a
+CUDA tensor goes to the kernel in ``csrc/chol_inverse.cu`` (f32, n up to 84)
+or raises, and follows the TPU kernel's pivot rule; a CPU tensor goes to the
+plain version :func:`chol_inverse_ref` (NaN where the factorization fails).
+
+``qd_inverse.launches`` and ``chol_inverse.launches`` count kernel launches
+(CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -30,7 +39,10 @@ import torch
 
 from ._build import load_library
 
-__all__ = ["qd_inverse", "qd_inverse_ref", "make_qd_inverse"]
+__all__ = ["qd_inverse", "qd_inverse_ref", "make_qd_inverse", "chol_inverse", "chol_inverse_ref"]
+
+# the widest block either kernel's shared-memory layout is sized for
+MAX_BLOCK = 84
 
 
 def qd_inverse_ref(S, np_: int, nd: int):
@@ -41,8 +53,10 @@ def qd_inverse_ref(S, np_: int, nd: int):
     nan = torch.tensor(float("nan"), dtype=S.dtype, device=S.device)
 
     def chol(A):
+        # a non-finite input can pass LAPACK's own test (info 0) with a
+        # non-finite factor: it fails here, as in the JAX qd_inverse_ref
         L, info = torch.linalg.cholesky_ex(A)
-        good = info == 0
+        good = (info == 0) & torch.isfinite(L).flatten(1).all(1)
         return torch.where(good[:, None, None], L, nan), good
 
     lp, ok_p = chol(P)
@@ -67,8 +81,8 @@ def _qd_inverse_cuda(S, np_: int, nd: int):
         raise TypeError(f"qd_inverse kernel takes float32, got {S.dtype}")
     if S.dim() != 3 or S.shape[1] != np_ + nd or S.shape[2] != np_ + nd:
         raise ValueError(f"qd_inverse expects (m, {np_ + nd}, {np_ + nd}), got {tuple(S.shape)}")
-    if np_ + nd > 84:
-        raise ValueError(f"qd_inverse kernel takes blocks up to 84 wide, got {np_ + nd}")
+    if np_ + nd > MAX_BLOCK:
+        raise ValueError(f"qd_inverse kernel takes blocks up to {MAX_BLOCK} wide, got {np_ + nd}")
     S = S.contiguous()
     m = S.shape[0]
     out = torch.empty_like(S)
@@ -108,3 +122,50 @@ def make_qd_inverse(np_: int, nd: int):
         return Sinv.reshape(S.shape), ok.reshape(lead)
 
     return fn
+
+
+def chol_inverse_ref(A):
+    """Plain PyTorch chol_inverse: (m, n, n) -> (Ainv (m, n, n), ok (m,)).
+    A failed factorization yields NaN inverses and ok = False."""
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = (info == 0) & torch.isfinite(L).flatten(1).all(1)  # a NaN input can give info 0
+    nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    Ainv = torch.cholesky_solve(eye, torch.where(ok[:, None, None], L, nan))
+    return 0.5 * (Ainv + Ainv.transpose(1, 2)), ok
+
+
+def _chol_inverse_cuda(A):
+    if A.dtype != torch.float32:
+        raise TypeError(f"chol_inverse kernel takes float32, got {A.dtype}")
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"chol_inverse expects (m, n, n), got {tuple(A.shape)}")
+    if A.shape[1] > MAX_BLOCK:
+        raise ValueError(f"chol_inverse kernel takes blocks up to {MAX_BLOCK} wide, got {A.shape[1]}")
+    A = A.contiguous()
+    m, n = A.shape[0], A.shape[1]
+    out = torch.empty_like(A)
+    ok = torch.empty(m, dtype=torch.bool, device=A.device)
+    lib = load_library("chol_inverse")
+    fn = lib.chol_inverse_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    rc = fn(A.data_ptr(), out.data_ptr(), ok.data_ptr(), m, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_inverse kernel launch failed: cudaError {rc}")
+    chol_inverse.launches += 1
+    return out, ok
+
+
+def chol_inverse(A):
+    """Batched SPD inverse (m, n, n) -> (Ainv, ok (m,) bool)."""
+    if A.device.type == "cuda":
+        return _chol_inverse_cuda(A)
+    if A.device.type == "cpu":
+        return chol_inverse_ref(A)
+    raise ValueError(f"chol_inverse runs on cuda or cpu tensors, got {A.device}")
+
+
+chol_inverse.launches = 0

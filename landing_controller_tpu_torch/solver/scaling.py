@@ -121,10 +121,11 @@ def scale_problem(problem, theta: LandingParams, z0, z_scale=None,
 
 
 def landing_z_scale(problem) -> np.ndarray:
-    """Static per-variable scales for the srbm_lcp decision layout: X rows
-    positions/orientation O(1), rates O(5); U foot positions O(1), GRFs
-    O(f_max/4 ~ 50 N)."""
+    """Static per-variable scales for the landing decision layout
+    [X(:); jpos(:); U(:)]: X rows positions/orientation O(1), rates O(5);
+    joint angles O(1); U foot positions O(1), GRFs O(f_max/4 ~ 50 N)."""
     n = problem.config.n_knots
     x_row = np.array([1, 1, 1, 1, 1, 1, 5, 5, 5, 5, 5, 5], dtype=np.float64)
     u_row = np.concatenate([np.ones(12), 50.0 * np.ones(12)])
-    return np.concatenate([np.tile(x_row, n), np.tile(u_row, n - 1)])
+    jpos = np.ones(problem.config.n_joints * (n - 1))
+    return np.concatenate([np.tile(x_row, n), jpos, np.tile(u_row, n - 1)])

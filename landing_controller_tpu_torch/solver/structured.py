@@ -1,10 +1,12 @@
-"""Stage-structured Newton step for the srbm_lcp NLP (batch-first).
+"""Stage-structured Newton step for the landing NLPs (batch-first).
 
 Replaces a dense KKT factorization with per-knot blocks and the
 inverse-based block cyclic reduction of :mod:`..ops.cr_inverse`:
 
-- inequality rows of knot k touch only v_k = [x_k, u_k, c_{k+1}];
+- inequality rows of knot k touch only v_k = [x_k, u_k, jpos_k, c_{k+1}];
 - dynamics defects touch (x_k, u_k) and x_{k+1} diagonally;
+- the scheduled variant's ground/no-slip equalities are linear in
+  (u_k, c_{k+1}) with constant coefficients;
 - the Lagrangian Hessian is block-tridiagonal in knot bundles.
 
 Per-knot Jacobians and Hessians come from ``torch.func`` (``jacfwd`` /
@@ -29,23 +31,30 @@ from ..problems.landing import knot_params
 
 
 def _layout(problem):
-    """Static index layout for the flat z vector <-> knot blocks (srbm_lcp:
-    no joint variables, 12 head equality rows)."""
-    n = problem.config.n_knots
-    nx, nu = 12, 24
-    nw = nx + nu
-    nh = 12  # head eq rows (x_0 = x_init)
-    nd = 12 + nh  # dynamics + (padded) head slots per block
+    """Static index layout for the flat z vector <-> knot blocks."""
+    cfg = problem.config
+    n = cfg.n_knots
+    nx, nu, nj = 12, 24, cfg.n_joints
+    nw = nx + nu + nj
+    nh = 12 + (12 if (cfg.kinodynamic or cfg.init_foot_eq) else 0)  # head eq rows
+    # scheduled variant: 4 ground-pin + 12 no-slip equality rows per knot
+    # (quadruped_SRBM_NLP.m:158-163), linear in (u_k, c_{k+1})
+    nsch = 16 if cfg.contact_scheduled else 0
+    nd = 12 + nsch + nh  # dynamics + scheduled + (padded) head slots per block
     bs = nw + nd
     nb = n  # blocks: N-1 knots + tail
 
     idx = np.full((nb, nw), -1, dtype=np.int64)
-    off_u = 12 * n
+    off_x, off_j, off_u = 0, 12 * n, 12 * n + nj * (n - 1)
     for k in range(n - 1):
-        idx[k, :nx] = 12 * k + np.arange(12)
-        idx[k, nx:] = off_u + 24 * k + np.arange(24)
-    idx[n - 1, :nx] = 12 * (n - 1) + np.arange(12)
-    return dict(n=n, nx=nx, nu=nu, nw=nw, nh=nh, nd=nd, bs=bs, nb=nb, idx=idx)
+        idx[k, :nx] = off_x + 12 * k + np.arange(12)
+        idx[k, nx : nx + nu] = off_u + 24 * k + np.arange(24)
+        if nj:
+            idx[k, nx + nu :] = off_j + 12 * k + np.arange(12)
+    idx[n - 1, :nx] = off_x + 12 * (n - 1) + np.arange(12)
+    return dict(
+        n=n, nx=nx, nu=nu, nj=nj, nw=nw, nh=nh, nsch=nsch, nd=nd, bs=bs, nb=nb, idx=idx
+    )
 
 
 def make_structured_newton_step(problem, theta, cfg, snlp):
@@ -58,9 +67,10 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
             f"kkt_backend={cfg.kkt_backend!r}: the PyTorch port has the 'cri' backend only"
         )
     L = _layout(problem)
-    n, nx, nu, nw, nh, nd, bs, nb = (
-        L["n"], L["nx"], L["nu"], L["nw"], L["nh"], L["nd"], L["bs"], L["nb"],
+    n, nx, nu, nw, nh, nsch, nd, bs, nb = (
+        L["n"], L["nx"], L["nu"], L["nw"], L["nh"], L["nsch"], L["nd"], L["bs"], L["nb"],
     )
+    pcfg = problem.config
     zs = snlp.z_scale
     dtype, dev = zs.dtype, zs.device
     B = snlp.batch
@@ -73,7 +83,7 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     flat_pos = torch.nonzero(valid.reshape(-1)).reshape(-1)
     flat_idx = idx.reshape(-1)[flat_pos]
 
-    mg_term = 24
+    mg_term = 24 if pcfg.terminal_box else 0
     mgk = (problem.n_ineq - mg_term) // (n - 1)
 
     # scales in block layout
@@ -83,6 +93,13 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     esc_head = snlp.eq_scale[:, :nh]
     esc_dyn = snlp.eq_scale[:, nh : nh + 12 * (n - 1)].reshape(B, n - 1, 12)
     f_scale = snlp.f_scale
+    off_hd = nw + 12 + nsch  # the head multiplier slots of block 0
+    if nsch:
+        # scheduled eq rows follow the defects in problem.eq: all ground
+        # rows (n-1, 4) then all no-slip rows (n-1, 12)
+        off_gd = nh + 12 * (n - 1)
+        esc_ground = snlp.eq_scale[:, off_gd : off_gd + 4 * (n - 1)].reshape(B, n - 1, 4)
+        esc_noslip = snlp.eq_scale[:, off_gd + 4 * (n - 1) :].reshape(B, n - 1, 12)
 
     def z_to_blocks(z):
         return z[:, idx_safe] * valid_f
@@ -95,8 +112,8 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     # ---- scaled stage functions (one knot; vmapped over B*(N-1) rows) ----
     def stage_ineq_s(v_t, vscale, gscale, kp):
         v = v_t * vscale
-        x, u, cn = v[:nx], v[nx : nx + nu], v[nw:]
-        return gscale * problem._knot_ineq_srbm(x, u, cn, kp["ns_mask"], kp)
+        x, u, jp, cn = v[:nx], v[nx : nx + nu], v[nx + nu : nw], v[nw:]
+        return gscale * problem.knot_ineq(x, u, jp, cn, kp)
 
     def stage_defect_s(w_t, wscale, escale, kp):
         """Scaled defect minus its x_{k+1} term (handled diagonally)."""
@@ -105,8 +122,14 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         xdot = problem._xdot(x, u, kp["mass"], kp["ib"], kp["ib_inv"])
         return escale * (-x - xdot * kp["dt"])
 
-    def head_eq_s(w0_t, zscale0, escale, x_init):
-        return escale * ((w0_t * zscale0)[:nx] - x_init)
+    def stage_cost_s(w_t, wscale, fs, kp):
+        """Scaled running cost of one knot (only with ``running_cost``)."""
+        w = w_t * wscale
+        return fs * problem._stage_cost(w[:nx], w[nx : nx + nu], kp)
+
+    def head_eq_s(w0_t, zscale0, escale, head_ref):
+        """x_0 = x_init and, where the problem has them, c_0 = c_init."""
+        return escale * ((w0_t * zscale0)[:nh] - head_ref)
 
     def term_cost_s(xl_t, zscale, fs, qn, x_ref_n):
         err = xl_t * zscale - x_ref_n
@@ -122,24 +145,53 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     vs_f = v_scale.reshape(R, -1)
     gs_f = gsc.reshape(R, mgk)
     es_f = esc_dyn.reshape(R, 12)
-    x_init = torch.cat([theta.q_init, theta.qd_init], -1)
+    fs_f = f_scale[:, None].expand(B, n - 1).reshape(R)
+    # w_0 starts with [x_0 (12), c_0 (12)]: the head rows pin its first nh entries
+    head_ref = torch.cat([theta.q_init, theta.qd_init, theta.c_init], -1)[:, :nh]
     bounds = {k: getattr(theta, k) for k in ("q_term_min", "q_term_max", "qd_term_min", "qd_term_max")}
     eye_nd = torch.eye(nd, dtype=dtype, device=dev)
     ar = torch.arange(nw, device=dev)
     ladder = cfg.ladder_scales
     qdi = make_qd_inverse(nw, nd)
 
+    if nsch:
+        # ---- scheduled equality Jacobian coefficients (constant: the rows
+        # are linear in z with per-(leg, coord) diagonal structure, so the
+        # scaled Jacobians are precomputed coefficient arrays, no autodiff).
+        # ground: esc * cs_k,leg * c_z[leg];  no-slip: esc * w_k,leg,d *
+        # (c_{k+1} - c_k)[leg, d]  (problems/landing.py eq(), scheduled arm)
+        cs = theta.cs  # (B, n-1, 4)
+        w_ns = problem.noslip_weights(cs)  # (B, n-1, 4, 3)
+        zs_c = zs_b[:, :, nx : nx + 12].reshape(B, nb, 4, 3)  # c-column scales per block
+        Jg_coef = esc_ground * cs * zs_c[:, : n - 1, :, 2]  # dG/d(scaled cz col)
+        esc_ns3 = esc_noslip.reshape(B, n - 1, 4, 3)
+        Jns_own = (-esc_ns3 * w_ns * zs_c[:, : n - 1]).reshape(B, n - 1, 12)
+        Jns_next = (esc_ns3 * w_ns * zs_c[:, 1:]).reshape(B, n - 1, 12)
+        # dense per-knot row blocks over w_k (for A assembly)
+        legs4 = torch.arange(4, device=dev)
+        r12 = torch.arange(12, device=dev)
+        Jg_w = torch.zeros((B, n - 1, 4, nw), dtype=dtype, device=dev)
+        Jg_w[:, :, legs4, nx + 2 + 3 * legs4] = Jg_coef
+        Jns_w = torch.zeros((B, n - 1, 12, nw), dtype=dtype, device=dev)
+        Jns_w[:, :, r12, nx + r12] = Jns_own
+
     def knot_JM(v, vs, gs, kpr, sg):
         J = jacfwd(lambda vv: stage_ineq_s(vv, vs, gs, kpr))(v)
         return J.T @ (sg[:, None] * J)
 
-    def knot_hess(v, vs, gs, kpr, lm, yk, esc):
+    def knot_hess(v, vs, gs, kpr, lm, yk, esc, fs):
         def lag(vv):
-            return (yk * stage_defect_s(vv[:nw], vs[:nw], esc, kpr)).sum() - (
+            total = (yk * stage_defect_s(vv[:nw], vs[:nw], esc, kpr)).sum() - (
                 lm * stage_ineq_s(vv, vs, gs, kpr)
             ).sum()
+            if pcfg.running_cost:
+                total = total + stage_cost_s(vv[:nw], vs[:nw], fs, kpr)
+            return total
 
         return hessian(lag)(v)
+
+    def knot_cost_hess(v, vs, kpr, fs):
+        return hessian(lambda vv: stage_cost_s(vv[:nw], vs[:nw], fs, kpr))(v)
 
     def newton_step(z, y, lam, sigma, mu, use_exact, r_d, r_g, rhs_z, rhs_y, delta_last):
         wb = z_to_blocks(z)
@@ -152,18 +204,19 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         # inequality Jacobians + sigma-weighted blocks
         M = vmap(knot_JM)(vk, vs_f, gs_f, kp, sig_k)
 
-        # Lagrangian stage Hessians.  "hybrid" scales (y, lam) by the
-        # per-lane use_exact flag: uf=0 gives the GN Hessian (zero here: no
-        # running cost), uf=1 the exact one, from one sweep.
+        # Lagrangian stage Hessians.  "hybrid" scales (y, lam), never the
+        # cost, by the per-lane use_exact flag: uf=0 gives the GN Hessian
+        # (the running cost's, zero without one), uf=1 the exact one, from
+        # one sweep.
         if cfg.hessian_mode == "gn":
-            HM = M
+            HM = M + vmap(knot_cost_hess)(vk, vs_f, kp, fs_f) if pcfg.running_cost else M
         else:
             if cfg.hessian_mode == "hybrid":
                 uf = use_exact.to(dtype)[:, None].expand(B, n - 1).reshape(R, 1)
                 lam_h, y_h = uf * lam_k, uf * y_dyn
             else:
                 lam_h, y_h = lam_k, y_dyn
-            HM = vmap(knot_hess)(vk, vs_f, gs_f, kp, lam_h, y_h, es_f) + M
+            HM = vmap(knot_hess)(vk, vs_f, gs_f, kp, lam_h, y_h, es_f, fs_f) + M
         HM = HM.reshape(B, n - 1, nw + 12, nw + 12)
 
         # defect Jacobians wrt w (scaled)
@@ -171,14 +224,15 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
             wb[:, : n - 1].reshape(R, nw), zs_b[:, : n - 1].reshape(R, nw), es_f, kp
         ).reshape(B, n - 1, 12, nw)
 
-        Jh = vmap(jacfwd(head_eq_s))(wb[:, 0], zs_b[:, 0], esc_head, x_init)  # (B, nh, nw)
+        Jh = vmap(jacfwd(head_eq_s))(wb[:, 0], zs_b[:, 0], esc_head, head_ref)  # (B, nh, nw)
 
         xl_t = wb[:, n - 1, :nx]
         zl = zs_b[:, n - 1, :nx]
         Ht = vmap(hessian(term_cost_s))(xl_t, zl, f_scale, theta.qn, theta.x_ref[:, -1])
-        Jt = vmap(jacfwd(term_ineq_s))(xl_t, zl, gsc_t, bounds)  # (B, 24, 12)
-        sig_t = sigma[:, (n - 1) * mgk :]
-        Ht = Ht + Jt.transpose(1, 2) @ (sig_t[..., None] * Jt)
+        if mg_term:
+            Jt = vmap(jacfwd(term_ineq_s))(xl_t, zl, gsc_t, bounds)  # (B, 24, 12)
+            sig_t = sigma[:, (n - 1) * mgk :]
+            Ht = Ht + Jt.transpose(1, 2) @ (sig_t[..., None] * Jt)
 
         # x_{k+1} coefficient of the scaled defect rows: diag(esc * zscale)
         xnext_coef = esc_dyn * zs_b[:, 1:, :nx]  # (B, n-1, 12)
@@ -192,8 +246,16 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         A[:, : n - 1, :nw, nw : nw + 12] += Dk.transpose(-1, -2)
         A[:, : n - 1, nw : nw + 12, :nw] += Dk
         C[:, : n - 1, :12, nw : nw + 12] += torch.diag_embed(xnext_coef)
-        A[:, 0, :nw, nw + 12 : nw + 12 + nh] += Jh.transpose(-1, -2)
-        A[:, 0, nw + 12 : nw + 12 + nh, :nw] += Jh
+        if nsch:
+            # scheduled ground/no-slip multiplier slots (block k) and the
+            # no-slip c_{k+1} coupling (diagonal into block k+1's c columns)
+            A[:, : n - 1, :nw, nw + 12 : nw + 16] += Jg_w.transpose(-1, -2)
+            A[:, : n - 1, nw + 12 : nw + 16, :nw] += Jg_w
+            A[:, : n - 1, :nw, nw + 16 : nw + 28] += Jns_w.transpose(-1, -2)
+            A[:, : n - 1, nw + 16 : nw + 28, :nw] += Jns_w
+            C[:, :, nx + r12, nw + 16 + r12] += Jns_next
+        A[:, 0, :nw, off_hd : off_hd + nh] += Jh.transpose(-1, -2)
+        A[:, 0, off_hd : off_hd + nh, :nw] += Jh
         A[:, n - 1, :nx, :nx] += Ht
         A[:, n - 1, nx:nw, nx:nw] += torch.eye(nw - nx, dtype=dtype, device=dev)
         delta_c = torch.clamp(1e-6 * delta_last, min=cfg.delta_c)
@@ -208,8 +270,13 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         dyn_norm2 = (Dk * Dk).sum(-1) + xnext_coef * xnext_coef
         nu_scale = z.new_ones((B, nb, nd))
         nu_scale[:, : n - 1, :12] = 1.0 / torch.sqrt(dyn_norm2 + 1e-6)
+        if nsch:
+            # scheduled rows have 1 (ground) / 2 (no-slip) diagonal nonzeros
+            nu_scale[:, : n - 1, 12:16] = 1.0 / torch.sqrt(Jg_coef * Jg_coef + 1e-6)
+            nu_scale[:, : n - 1, 16:28] = 1.0 / torch.sqrt(
+                Jns_own * Jns_own + Jns_next * Jns_next + 1e-6)
         head_norm2 = (Jh * Jh).sum(-1)
-        nu_scale[:, 0, 12 : 12 + nh] = 1.0 / torch.sqrt(head_norm2 + 1e-6)
+        nu_scale[:, 0, 12 + nsch : 12 + nsch + nh] = 1.0 / torch.sqrt(head_norm2 + 1e-6)
         d_block = torch.cat([scale_w, nu_scale], -1)  # (B, nb, bs)
 
         deltas = torch.stack(
@@ -241,7 +308,12 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
             b = z.new_zeros((B, nb, bs))
             b[:, :, :nw] = z_to_blocks(rhs_z_v)
             b[:, : n - 1, nw : nw + 12] = rhs_y_v[:, nh : nh + 12 * (n - 1)].reshape(B, n - 1, 12)
-            b[:, 0, nw + 12 : nw + 12 + nh] = rhs_y_v[:, :nh]
+            if nsch:
+                b[:, : n - 1, nw + 12 : nw + 16] = rhs_y_v[
+                    :, off_gd : off_gd + 4 * (n - 1)].reshape(B, n - 1, 4)
+                b[:, : n - 1, nw + 16 : nw + 28] = rhs_y_v[
+                    :, off_gd + 4 * (n - 1) :].reshape(B, n - 1, 12)
+            b[:, 0, off_hd : off_hd + nh] = rhs_y_v[:, :nh]
             b_s = b * d_block
             x_s = cri_solve(fac, b_s)
             for _ in range(cfg.refine_steps):
@@ -249,10 +321,11 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
                 x_s = x_s + cri_solve(fac, b_s - K_mul(x_s))
             x = x_s * d_block
             dz = blocks_to_z(x[..., :nw])
-            dy = torch.cat(
-                [x[:, 0, nw + 12 : nw + 12 + nh], x[:, : n - 1, nw : nw + 12].reshape(B, -1)], -1
-            )
-            return dz, dy
+            dy_parts = [x[:, 0, off_hd : off_hd + nh], x[:, : n - 1, nw : nw + 12].reshape(B, -1)]
+            if nsch:
+                dy_parts.append(x[:, : n - 1, nw + 12 : nw + 16].reshape(B, -1))
+                dy_parts.append(x[:, : n - 1, nw + 16 : nw + 28].reshape(B, -1))
+            return dz, torch.cat(dy_parts, -1)
 
         dz, dy = resolve(rhs_z, rhs_y)
         return dz, dy, delta_used, resolve

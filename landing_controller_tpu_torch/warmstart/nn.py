@@ -119,11 +119,12 @@ def nn_warmstart_guess(mlp: WarmstartMLP, stats: DataStats, q_init, qd_init, pro
     """(B, 6) initial conditions -> (B, n_vars) warm-start vectors.
 
     Normalize input, MLP, denormalize, re-anchor to the queried xy, pin the
-    initial state, pack [X(:); U(:)] (the srbm_lcp layout drops jpos)."""
+    initial state, pack [X(:); (jpos(:)); U(:)] (the kinodynamic layout keeps
+    the predicted joint angles, the srbm layouts drop them)."""
     x_in = torch.cat([q_init[:, 3:6], qd_init], -1)
     xin_n = (x_in - stats.mean_input) / stats.std_input
     y = mlp(xin_n)
-    X, U, _ = denormalize_output(stats, y)
+    X, U, jpos = denormalize_output(stats, y)
     # the network was trained with the initial xy zeroed: shift base and
     # foot xy to start at q_init's xy, and pin the initial state exactly
     shift = q_init[:, 0:2] - X[:, 0, 0:2]  # (B, 2)
@@ -132,5 +133,6 @@ def nn_warmstart_guess(mlp: WarmstartMLP, stats: DataStats, q_init, qd_init, pro
     c = torch.cat([c[..., 0:2] + shift[:, None, None], c[..., 2:]], -1)
     U = torch.cat([c.reshape(U.shape[:-1] + (12,)), U[..., 12:]], -1)
     X = torch.cat([torch.cat([q_init, qd_init], -1)[:, None], X[:, 1:]], 1)
-    B, n = X.shape[0], X.shape[1]
-    return problem.pack(LandingVars(X=X, jpos=X.new_zeros((B, n - 1, 0)), U=U))
+    if not problem.config.kinodynamic:
+        jpos = jpos[..., :0]
+    return problem.pack(LandingVars(X=X, jpos=jpos, U=U))

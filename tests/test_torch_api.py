@@ -2,11 +2,14 @@
 device rule, and warm restarts (CPU)."""
 
 import dataclasses
+import inspect
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from landing_controller_tpu.api import LandingSolver as JaxLandingSolver
 from landing_controller_tpu.solver import IPConfig as JaxIPConfig
 from landing_controller_tpu_torch.api import LandingSolution, LandingSolver
 from landing_controller_tpu_torch.solver.ip import IPConfig
@@ -28,13 +31,54 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError):
             LandingSolver(n_knots=13)
-    for kind in ("kinodynamic", "ccc", "contact_scheduled", "sliding"):
-        with pytest.raises(NotImplementedError):
-            LandingSolver(kind, device="cpu")
     with pytest.raises(NotImplementedError):
-        LandingSolver(device="cpu", config=IPConfig(kkt_backend="scan"))
+        LandingSolver("kinodynamic_voltage", device="cpu")
+    for backend in ("scan", "cr", "cri_ref"):
+        with pytest.raises(NotImplementedError):
+            LandingSolver(device="cpu", config=IPConfig(kkt_backend=backend))
     with pytest.raises(NotImplementedError):
         LandingSolver(device="cpu", structured=False)
+    with pytest.raises(KeyError):
+        LandingSolver("eeparam", device="cpu")
+
+
+def test_default_kind_is_kinodynamic_as_in_jax():
+    """A bare call solves the production problem on both sides."""
+    ours = inspect.signature(LandingSolver.__init__).parameters
+    theirs = inspect.signature(JaxLandingSolver.__init__).parameters
+    assert ours["kind"].default == theirs["kind"].default == "kinodynamic"
+    assert ours["n_knots"].default == theirs["n_knots"].default == 21
+    s = LandingSolver(device="cpu")
+    assert s.kind == "kinodynamic" and s.problem.config.kinodynamic
+    assert s.problem.n_vars == 12 * 21 + 36 * 20
+    assert s._z_scale.shape == (s.problem.n_vars,)
+    assert s._relax_mask.shape == (s.problem.n_ineq,)
+
+
+@pytest.mark.parametrize("kind", ["kinodynamic", "srbm_lcp", "sliding", "ccc", "contact_scheduled"])
+def test_solver_kinds_and_default_config_match_jax(kind):
+    """Every structured kind builds, with the JAX package's problem sizes and
+    default solver settings (f32 and f64); kkt_backend is the port's "cri"."""
+    for tdt, jdt in ((torch.float32, jnp.float32), (torch.float64, jnp.float64)):
+        ts = LandingSolver(kind, n_knots=7, dtype=tdt, device="cpu")
+        js = JaxLandingSolver(kind, n_knots=7, dtype=jdt)
+        assert (ts.problem.n_vars, ts.problem.n_eq, ts.problem.n_ineq) == (
+            js.problem.n_vars, js.problem.n_eq, js.problem.n_ineq)
+        ours, theirs = dataclasses.asdict(ts.config), dataclasses.asdict(js.config)
+        assert ours.pop("kkt_backend") == "cri" and theirs.pop("kkt_backend") == "scan"
+        assert ours == theirs
+
+
+def test_warm_variant_carries_device_and_settings():
+    base = LandingSolver("sliding", n_knots=9, dtype=torch.float64, guess="ballistic",
+                         retry_guess="reference", theta_overrides={"mu": 0.3}, device="cpu")
+    warm = base.warm_variant(mu_init=1e-3, max_iter=40)
+    assert warm.config.mu_init == 1e-3 and warm.config.max_iter == 40
+    assert dataclasses.replace(warm.config, mu_init=base.config.mu_init,
+                               max_iter=base.config.max_iter) == base.config
+    assert (warm.kind, warm.device, warm.dtype, warm.guess, warm.retry_guess) == (
+        "sliding", base.device, torch.float64, "ballistic", ("reference",))
+    assert warm.problem.config == base.problem.config and warm.theta_overrides == {"mu": 0.3}
 
 
 def test_warm_restart_from_a_solution():

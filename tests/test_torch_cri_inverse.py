@@ -29,7 +29,9 @@ def _tridiag(rng, nb, np_, nd):
     return A, C, b
 
 
-@pytest.mark.parametrize("nb", [1, 2, 5, 21])
+# 16, 18, 21, 41: the block counts of the contact-scheduled, sliding,
+# kinodynamic/srbm_lcp and ccc horizons
+@pytest.mark.parametrize("nb", [1, 2, 5, 16, 18, 21, 41])
 def test_cri_factor_solve_match_jax(nb):
     rng = np.random.default_rng(5)
     np_, nd = 6, 4
@@ -40,6 +42,7 @@ def test_cri_factor_solve_match_jax(nb):
     x_t = cri_solve(fac_t, torch.as_tensor(b)).numpy()
     assert bool(fac_t.ok) == bool(fac_j.ok) is True
     assert len(fac_t.levels) == len(fac_j.levels)
+    assert [lt.Sinv.shape[0] for lt in fac_t.levels] == [lj.Sinv.shape[0] for lj in fac_j.levels]
     for lt, lj in zip(fac_t.levels, fac_j.levels):
         np.testing.assert_allclose(lt.Sinv.numpy(), np.asarray(lj.Sinv), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(x_t, x_j, rtol=1e-10, atol=1e-10)

@@ -27,7 +27,8 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 20
+    assert len(modules) >= 21
+    assert "landing_controller_tpu_torch.dynamics.legs" in modules
     code = "\n".join(
         [
             "import sys",
@@ -52,7 +53,8 @@ def test_port_sources_name_no_jax():
     pattern = re.compile(r"import jax|from jax|landing_controller_tpu\.")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(PKG_DIR):
-        files += [os.path.join(d, f) for f in fs if f.endswith((".py", ".cu"))]
+        files += [os.path.join(d, f) for f in fs if f.endswith((".py", ".cu", ".cuh"))]
+    assert sum(f.endswith((".cu", ".cuh")) for f in files) == 3
     for path in files:
         with open(path) as f:
             src = f.read()

@@ -76,8 +76,9 @@ def test_rotations_and_dynamics_match():
 
 
 def test_other_problem_kinds_not_ported():
+    """The motor-voltage rows run on the dense KKT path, which is not ported."""
     with pytest.raises(NotImplementedError):
-        LandingProblem(LandingConfig(kinodynamic=True), None)
+        LandingProblem(LandingConfig(kinodynamic=True, voltage_limit=True), None)
 
 
 @pytest.mark.parametrize("n", [13, 21])
@@ -86,7 +87,10 @@ def test_params_residuals_and_masks_match(n):
     q0, qd0 = _scenario(rng)
     th_j, th_t = _theta_pair(q0, qd0, n)
     th_t2 = t_ref.srbm_lcp_params(torch.as_tensor(q0)[None], torch.as_tensor(qd0)[None], n_knots=n)
-    for f in dataclasses.fields(th_t):
+    # srbm_lcp carries no running-cost weights and no contact schedule
+    fields = [f for f in dataclasses.fields(th_t) if f.name not in ("qx", "qc", "qf", "cs")]
+    assert all(getattr(th, k) is None for th in (th_t, th_t2) for k in ("qx", "qc", "qf", "cs"))
+    for f in fields:
         _close(getattr(th_t2, f.name), getattr(th_t, f.name))
     pj = j_srbm_lcp_problem(j_get_robot_params("mc3D"), n_knots=n)
     pt = srbm_lcp_problem(None, n_knots=n)
@@ -96,7 +100,7 @@ def test_params_residuals_and_masks_match(n):
     z = rng.standard_normal((3, pj.n_vars))
     zt = torch.as_tensor(z)
     th_t3 = dataclasses.replace(th_t, **{f.name: getattr(th_t, f.name).expand(
-        (3,) + getattr(th_t, f.name).shape[1:]) for f in dataclasses.fields(th_t)})
+        (3,) + getattr(th_t, f.name).shape[1:]) for f in fields})
     for name in ("cost", "eq", "ineq"):
         got = getattr(pt, name)(zt, th_t3).numpy()
         for i in range(3):

@@ -89,6 +89,24 @@ def test_pivot_clamp_pallas_overflows_plain_inverts():
     assert float(Sinv_t[0, 12, 12]) == pytest.approx(-1e37, rel=1e-6)
 
 
+def test_non_finite_blocks_fail_in_every_version():
+    """A block with a NaN or an infinity (the reduced block of a failed
+    ladder candidate) is not ok: in the JAX reference, in the Pallas kernel
+    (interpret mode) and in the port's plain version, whose LAPACK call may
+    report success on it."""
+    rng = np.random.default_rng(9)
+    S = _random_qd_blocks(rng, 5, 12, 8, np.float32)
+    S[1, 3, 3] = np.nan
+    S[2, 14, 2] = S[2, 2, 14] = np.inf
+    S[3, 15, 15] = np.nan
+    want = [True, False, False, False, True]
+    assert np.asarray(j_qd_inverse_ref(jnp.asarray(S), 12, 8)[1]).tolist() == want
+    assert np.asarray(j_qd_inverse(jnp.asarray(S), 12, 8, interpret=True)[1]).tolist() == want
+    Sinv, ok = qd_inverse(torch.as_tensor(S), 12, 8)
+    assert ok.tolist() == want
+    assert torch.isfinite(Sinv[ok]).all()
+
+
 def test_make_qd_inverse_folds_leading_dims():
     rng = np.random.default_rng(4)
     S = _random_qd_blocks(rng, 2 * 3 * 4, 5, 3, np.float64)
