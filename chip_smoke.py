@@ -9,7 +9,11 @@ Phases (any failure exits nonzero, before the result line):
 2. build: compiles every CUDA kernel of the port from ``csrc/`` (one nvcc
    process per source, all started together);
 3. kernel parity: every kernel against its plain PyTorch version on the
-   card, on random inputs at the paths' shapes, with timings;
+   card, on random inputs at the paths' shapes (the compile-time instances,
+   and the run-time instance at a shape no template serves), results
+   symmetric bit for bit, with timings at the largest level and at a
+   one-wave level of each family, and each instance's shared memory and
+   resident blocks per SM;
 4. the srbm_lcp path: the streaming solve of the repo's benchmark settings
    (B=64, 25-iteration segments, deadlines (100, 150), ballistic guess with
    an NN retry, production dt schedule) over one pool of 64 scenarios, with
@@ -35,6 +39,10 @@ Phases (any failure exits nonzero, before the result line):
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX.
+
+tests/probe_inverse_rounding.py runs the srbm_lcp path of phase 4 with other
+block inverses in the kernel's place; tests/probe_block_kernels.py times the
+kernels for other numbers of threads per block.
 """
 
 from __future__ import annotations
@@ -132,20 +140,26 @@ def random_qd_blocks(rng, m, np_, nd):
     return S.astype(np.float32)
 
 
-def median_ms(torch, fn, reps=25):
-    """Median over reps of one call's device time (CUDA events), after a
-    warm-up call and a synchronize."""
+def median_ms(torch, fn, reps=25, inner=5):
+    """Median over reps of one call's device time (CUDA events around
+    `inner` calls, divided), after a warm-up call and a synchronize.  The
+    calls are queued behind a long matrix product, so that the card finds
+    them all waiting: a kernel of tens of microseconds is otherwise timed by
+    the host's pace of launching it, not by its own."""
     fn()
+    blocker = torch.empty((8192, 8192), device="cuda")
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.mm(blocker, blocker)  # ~20 ms on an H100; the values do not matter
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -172,14 +186,21 @@ def chol_inverse_bound_ms(m, n):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cr_launch_sizes(nb: int, lanes: int = 1, candidates: int = 1) -> list:
+    """Batch sizes m of the block-inverse calls of one cyclic-reduction
+    factorization of nb blocks for `lanes` scenarios with `candidates`
+    ladder candidates each: the odd blocks of every level, then the root."""
+    sizes = []
+    while nb > 1:
+        sizes.append(nb // 2)
+        nb = (nb + 1) // 2
+    return [k * lanes * candidates for k in sizes + [1]]
+
+
 def cr_launches_per_factor(nb: int) -> int:
     """Block-inverse calls of one cyclic-reduction factorization of nb
     blocks: one per level (the odd blocks) and one for the root."""
-    levels = 0
-    while nb > 1:
-        nb = (nb + 1) // 2
-        levels += 1
-    return levels + 1
+    return len(cr_launch_sizes(nb))
 
 
 def capture_block_inverse_calls(structured, captured, every):
@@ -268,7 +289,7 @@ def check_real_blocks(torch, name, kernel_fn, plain_fn, captured, rel_least_pivo
       f32 versions may round to different signs; such blocks are counted,
       left out of the limits, and may be at most 2% of all blocks;
     - the kernel is finite on every block both flag ok that is not singular
-      in f32;
+      in f32, and symmetric bit for bit on every finite block both flag ok;
     - pooled over all captured calls, the kernel's median and 99th-percentile
       errors are at most 2x the plain version's, and its largest at most 10x.
     """
@@ -300,6 +321,8 @@ def check_real_blocks(torch, name, kernel_fn, plain_fn, captured, rel_least_pivo
         finite_k = torch.isfinite(out_k[ok]).flatten(1).all(1)
         if (~finite_k & ~singular).any():
             raise AssertionError(f"{name} kernel is not finite on an ok block of call {call}")
+        if not torch.equal(out_k[ok][finite_k], out_k[ok][finite_k].transpose(1, 2)):
+            raise AssertionError(f"{name} kernel output of call {call} is not symmetric bit for bit")
         ek, ep = ek[~singular], ep[~singular]
         n_ok += int(ok.sum())
         n_singular += int(singular.sum())
@@ -372,6 +395,34 @@ def profile_iteration(torch, solver, q, qd, label, card, iters=3):
             f"{e.key[:80]}")
 
 
+def srbm_lcp_path():
+    """The srbm_lcp solver of the repo's benchmark settings on the card, and
+    a function seed -> its streaming solver (B=64, 25-iteration segments,
+    deadlines (100, 150))."""
+    import torch
+
+    from landing_controller_tpu_torch import IPConfig, LandingSolver, StreamingSolver
+    from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
+
+    cfg = IPConfig(
+        max_iter=200, hessian_mode="hybrid", mu_init=0.3, kappa_mu=0.5, mu_min=1e-5, tol=1e-4,
+        sigma_max=1e5, refine_steps=1, relax_scale=1.0, delta_c=1e-6, kkt_backend="cri",
+        ladder_scales=(0.0, 1.0), n_linesearch=4, mu_strategy="loqo", stall_window=40,
+        stall_min_iter=40, corrector=1,
+    )
+    solver = LandingSolver(
+        "srbm_lcp", dtype=torch.float32, config=cfg, guess="ballistic",
+        theta_overrides={"dt": DT_PRODUCTION.astype(np.float32)}, retry_guess="nn",
+        device="cuda",
+    )
+
+    def make_stream(seed):
+        return StreamingSolver(solver, batch=64, segment=25, sampler=bench_sampler(seed),
+                               attempt_iters=(100, 150), collect_z=True)
+
+    return solver, make_stream
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -388,13 +439,12 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    from landing_controller_tpu_torch import IPConfig, LandingSolver, StreamingSolver
+    from landing_controller_tpu_torch import IPConfig, LandingSolver
     from landing_controller_tpu_torch import ops
-    from landing_controller_tpu_torch.ops import _build
+    from landing_controller_tpu_torch.ops import _build, pallas_blocks
     from landing_controller_tpu_torch.ops.pallas_blocks import (chol_inverse, chol_inverse_ref,
                                                                qd_inverse, qd_inverse_ref)
     from landing_controller_tpu_torch.solver import structured
-    from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -415,97 +465,111 @@ def main() -> int:
         for line in out.strip().splitlines():
             log(f"[build] {name}: {line}")
 
-    # ---- 3. kernel parity on random blocks, timings at the largest levels
+    # ---- 3. kernel parity on random blocks; timings at the largest level of
+    # the srbm_lcp path (64 lanes x 2 ladder candidates x 10 blocks) and of the
+    # kinodynamic path (128 x 4 x 10), at their one-wave levels (x 1 block),
+    # and of the run-time instance at a shape no template serves
     rng = np.random.default_rng(0)
-    rec_qd, rec_qd_kino, rec_chol = {}, {}, {}
-    for np_, nd, m in ((36, 24, 1280), (36, 24, 128), (48, 36, 5120), (36, 40, 256)):
-        S_np = random_qd_blocks(rng, m, np_, nd)
-        S_np[3, 0, 0] = -5.0  # one indefinite block
-        S = torch.as_tensor(S_np, device=dev)
-        out_k, ok_k = qd_inverse(S, np_, nd)
-        out_p, ok_p = qd_inverse_ref(S, np_, nd)
+
+    def parity(name, kernel_fn, plain_fn, x_np, label):
+        """Kernel vs plain version on blocks whose block 3 is made
+        indefinite; returns (blocks on the card, max abs error)."""
+        m = x_np.shape[0]
+        if m > 3:
+            x_np[3, 0, 0] = -5.0
+        n_bad = int(m > 3)
+        x = torch.as_tensor(x_np, device=dev)
+        out_k, ok_k = kernel_fn(x)
+        out_p, ok_p = plain_fn(x)
         torch.cuda.synchronize()
-        if not torch.equal(ok_k, ok_p) or bool(ok_k[3]) or int(ok_k.sum()) != m - 1:
-            raise AssertionError(f"qd_inverse ok flags disagree at ({np_}, {nd}), m={m}")
+        if not torch.equal(ok_k, ok_p) or int(ok_k.sum()) != m - n_bad or (n_bad and bool(ok_k[3])):
+            raise AssertionError(f"{name} ok flags disagree at {label}")
         if not torch.isfinite(out_k[ok_k]).all():
-            raise AssertionError("qd_inverse kernel output is not finite on ok blocks")
+            raise AssertionError(f"{name} kernel output is not finite on ok blocks at {label}")
         a, b = out_k[ok_k], out_p[ok_k]
         err = float((a - b).abs().max())
         if not bool(((a - b).abs() <= 2e-4 + 2e-4 * b.abs()).all()):
-            raise AssertionError(f"qd_inverse kernel disagrees at ({np_}, {nd}), m={m}: {err}")
-        log(f"[parity] qd_inverse ({np_},{nd}) m={m}: max_abs_err {err:.3e} (rtol=atol=2e-4), "
-            f"ok flags agree ({m - 1}/{m} ok)")
-        # timed at the largest level of the srbm_lcp path (64 lanes x 2 ladder
-        # candidates x 10 blocks) and of the kinodynamic path (128 x 4 x 10)
-        record = {(36, 24, 1280): rec_qd, (48, 36, 5120): rec_qd_kino}.get((np_, nd, m))
-        if record is not None:
-            record["max_abs_err"] = err
-            record["ms"] = median_ms(torch, lambda: qd_inverse(S, np_, nd))
-            record["plain_ms"] = median_ms(torch, lambda: qd_inverse_ref(S, np_, nd))
-            record["library_ms"] = median_ms(torch, lambda: torch.linalg.inv(S))
-            record["bound_ms"], record["bound_by"] = qd_inverse_bound_ms(m, np_, nd)
-            log(f"[time] qd_inverse ({np_},{nd}) m={m} on {card}: kernel {record['ms']:.4f} ms, "
-                f"plain {record['plain_ms']:.4f} ms, torch.linalg.inv {record['library_ms']:.4f} ms, "
-                f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
-    for n, m in ((24, 1280), (36, 1280), (48, 5120), (84, 256)):
-        A_np = random_spd_blocks(rng, m, n)
-        A_np[3, 0, 0] = -5.0  # one indefinite block
-        A = torch.as_tensor(A_np, device=dev)
-        out_k, ok_k = chol_inverse(A)
-        out_p, ok_p = chol_inverse_ref(A)
-        torch.cuda.synchronize()
-        if not torch.equal(ok_k, ok_p) or bool(ok_k[3]) or int(ok_k.sum()) != m - 1:
-            raise AssertionError(f"chol_inverse ok flags disagree at n={n}, m={m}")
-        if not torch.isfinite(out_k[ok_k]).all():
-            raise AssertionError("chol_inverse kernel output is not finite on ok blocks")
-        a, b = out_k[ok_k], out_p[ok_k]
-        err = float((a - b).abs().max())
-        if not bool(((a - b).abs() <= 2e-4 + 2e-4 * b.abs()).all()):
-            raise AssertionError(f"chol_inverse kernel disagrees at n={n}, m={m}: {err}")
-        log(f"[parity] chol_inverse n={n} m={m}: max_abs_err {err:.3e} (rtol=atol=2e-4), "
-            f"ok flags agree ({m - 1}/{m} ok)")
-        if (n, m) == (48, 5120):
-            A_ok = A[ok_k].contiguous()  # the library calls raise on an indefinite block
-            lib_inv = median_ms(torch, lambda: torch.linalg.inv(A_ok))
-            lib_chol = median_ms(
-                torch, lambda: torch.cholesky_inverse(torch.linalg.cholesky(A_ok)))
-            rec_chol.update(
-                max_abs_err=err,
-                ms=median_ms(torch, lambda: chol_inverse(A)),
-                plain_ms=median_ms(torch, lambda: chol_inverse_ref(A)),
-                library_ms=min(lib_inv, lib_chol),
-            )
-            rec_chol["bound_ms"], rec_chol["bound_by"] = chol_inverse_bound_ms(m, n)
-            log(f"[time] chol_inverse n={n} m={m} on {card}: kernel {rec_chol['ms']:.4f} ms, "
-                f"plain {rec_chol['plain_ms']:.4f} ms, torch.linalg.inv {lib_inv:.4f} ms, "
-                f"cholesky + cholesky_inverse {lib_chol:.4f} ms (m={m - 1}), "
-                f"bound {rec_chol['bound_ms']:.4f} ms ({rec_chol['bound_by']})")
+            raise AssertionError(f"{name} kernel disagrees at {label}: {err}")
+        if not torch.equal(a, a.transpose(1, 2)):
+            raise AssertionError(f"{name} kernel output is not symmetric bit for bit at {label}")
+        log(f"[parity] {name} {label}: max_abs_err {err:.3e} (rtol=atol=2e-4), ok flags agree "
+            f"({m - n_bad}/{m} ok), symmetric bit for bit")
+        return x, err
+
+    def timed(name, kernel_fn, plain_fn, library, x, err, bound, label):
+        """One record of the kernels line: kernel, plain version and library
+        calls {name: fn} timed on x."""
+        rec = {"max_abs_err": err, "ms": median_ms(torch, lambda: kernel_fn(x)),
+               "plain_ms": median_ms(torch, lambda: plain_fn(x))}
+        lib = {k: median_ms(torch, fn) for k, fn in library.items()}
+        rec["library_ms"] = min(lib.values())
+        rec["bound_ms"], rec["bound_by"] = bound
+        log(f"[time] {name} {label} on {card}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
+            + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel / bound "
+            f"{rec['ms'] / rec['bound_ms']:.1f}")
+        return rec
+
+    qd_recs = {}
+    for np_, nd, m in ((36, 24, 1280), (36, 24, 128), (48, 36, 5120), (48, 36, 512),
+                       (36, 40, 256), (30, 20, 1280)):
+        kernel_fn, plain_fn, _ = qd_pair(np_, nd)
+        label = f"({np_},{nd}) m={m}"
+        S, err = parity("qd_inverse", kernel_fn, plain_fn, random_qd_blocks(rng, m, np_, nd), label)
+        if (np_, nd) != (36, 40):
+            qd_recs[(np_, nd, m)] = timed(
+                "qd_inverse", kernel_fn, plain_fn, {"torch.linalg.inv": lambda: torch.linalg.inv(S)},
+                S, err, qd_inverse_bound_ms(m, np_, nd), label)
+    rec_qd = {**qd_recs[(36, 24, 1280)], "one_wave_shape": "(np, nd) = (36, 24), m = 128",
+              "one_wave_ms": qd_recs[(36, 24, 128)]["ms"],
+              "one_wave_bound_ms": qd_recs[(36, 24, 128)]["bound_ms"]}
+    rec_qd_kino = {**qd_recs[(48, 36, 5120)], "one_wave_shape": "(np, nd) = (48, 36), m = 512",
+                   "one_wave_ms": qd_recs[(48, 36, 512)]["ms"],
+                   "one_wave_bound_ms": qd_recs[(48, 36, 512)]["bound_ms"]}
+    chol_recs = {}
+    for n, m in ((24, 1280), (36, 1280), (48, 5120), (48, 512), (84, 256)):
+        label = f"n={n} m={m}"
+        A, err = parity("chol_inverse", chol_inverse, chol_inverse_ref, random_spd_blocks(rng, m, n),
+                        label)
+        if n == 48:
+            A_ok = torch.cat([A[:3], A[4:]])  # the library calls raise on an indefinite block
+            chol_recs[m] = timed(
+                "chol_inverse", chol_inverse, chol_inverse_ref,
+                {"torch.linalg.inv": lambda: torch.linalg.inv(A_ok),
+                 f"cholesky + cholesky_inverse (m={m - 1})":
+                     lambda: torch.cholesky_inverse(torch.linalg.cholesky(A_ok))},
+                A, err, chol_inverse_bound_ms(m, n), label)
+    rec_chol = {**chol_recs[5120], "one_wave_shape": "n = 48, m = 512",
+                "one_wave_ms": chol_recs[512]["ms"], "one_wave_bound_ms": chol_recs[512]["bound_ms"]}
+    # shared memory (as the loaded library sizes its launches) and resident
+    # blocks per SM of the instances the paths run
+    occupancy = {}
+    for name, sizes in ([("qd_inverse", s) for s in ((36, 24), (48, 36), (36, 40))]
+                        + [("chol_inverse", (n,)) for n in (36, 48)]):
+        smem = pallas_blocks.library_smem_bytes(name, *sizes)
+        if smem != pallas_blocks.block_smem_bytes(sum(sizes)):
+            raise AssertionError(f"{name} {sizes}: the library takes {smem} bytes of shared memory, "
+                                 f"its Python mirror says {pallas_blocks.block_smem_bytes(sum(sizes))}")
+        occupancy[(name, sizes)] = (smem, pallas_blocks.blocks_per_sm(name, *sizes))
+        log(f"[build] {name} {sizes}: {smem} bytes of shared memory per block, "
+            f"{occupancy[(name, sizes)][1]} blocks per SM")
+    for rec, key in ((rec_qd, ("qd_inverse", (36, 24))), (rec_qd_kino, ("qd_inverse", (48, 36))),
+                     (rec_chol, ("chol_inverse", (48,)))):
+        rec["smem_bytes"], rec["blocks_per_sm"] = occupancy[key]
 
     # ---- 4. the srbm_lcp path
-    cfg = IPConfig(
-        max_iter=200, hessian_mode="hybrid", mu_init=0.3, kappa_mu=0.5, mu_min=1e-5, tol=1e-4,
-        sigma_max=1e5, refine_steps=1, relax_scale=1.0, delta_c=1e-6, kkt_backend="cri",
-        ladder_scales=(0.0, 1.0), n_linesearch=4, mu_strategy="loqo", stall_window=40,
-        stall_min_iter=40, corrector=1,
-    )
-    solver = LandingSolver(
-        "srbm_lcp", dtype=torch.float32, config=cfg, guess="ballistic",
-        theta_overrides={"dt": DT_PRODUCTION.astype(np.float32)}, retry_guess="nn",
-        device="cuda",
-    )
+    t0 = time.time()
+    solver, make_stream = srbm_lcp_path()
     log(f"[srbm_lcp] tf32 after solver build: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     # warm-up: one segment on a 64-scenario pool (first-call costs)
-    t0 = time.time()
-    StreamingSolver(solver, batch=64, segment=25, sampler=bench_sampler(1),
-                    attempt_iters=(100, 150)).run(64, max_wall_s=0.0)
+    make_stream(1).run(64, max_wall_s=0.0)
     torch.cuda.synchronize()
     log(f"[srbm_lcp] warm-up {time.time() - t0:.1f} s")
-
-    ss = StreamingSolver(solver, batch=64, segment=25, sampler=bench_sampler(0),
-                         attempt_iters=(100, 150), collect_z=True)
+    ss = make_stream(0)
     cap_srbm = {}
-    restore, _ = capture_block_inverse_calls(structured, cap_srbm, CAPTURE_EVERY)
+    restore, sizes_srbm = capture_block_inverse_calls(structured, cap_srbm, CAPTURE_EVERY)
     launches = {}
     qd_inverse.launches = chol_inverse.launches = 0
     try:
@@ -527,6 +591,8 @@ def main() -> int:
         raise AssertionError("NaN in the harvested results")
     if launches["srbm_lcp"] <= 0:
         raise AssertionError("the srbm_lcp path launched no qd_inverse kernel")
+    if sizes_srbm[:6] != cr_launch_sizes(21, 64, 2):
+        raise AssertionError(f"unexpected srbm_lcp launch sizes {sizes_srbm[:6]}")
     if stats["convergence_rate"] < 0.6:
         raise AssertionError(f"convergence_rate {stats['convergence_rate']:.3f} < 0.6")
 
@@ -589,7 +655,7 @@ def main() -> int:
         f"one iteration m = {sizes[:6]}, joint torque max {float(sol.tau.abs().max()):.2f} N m")
     if launches["kinodynamic"] <= 0 or launches["kinodynamic"] != len(sizes):
         raise AssertionError("the kinodynamic path did not go through the qd_inverse kernel")
-    if sizes[:6] != [N_KINO * 4 * k for k in (10, 5, 3, 1, 1, 1)]:
+    if sizes[:6] != cr_launch_sizes(21, N_KINO, 4):
         raise AssertionError(f"unexpected kinodynamic launch sizes {sizes[:6]}")
     for name in ("z", "X", "jpos", "U", "tau", "cost", "kkt_error", "constr_viol"):
         if not torch.isfinite(getattr(sol, name)).all():
@@ -712,6 +778,7 @@ def main() -> int:
         "shape": "(np, nd) = (36, 24), m = 1280",
         **rec_qd,
         "at_48_36_m5120": rec_qd_kino,
+        "generic_at_30_20_m1280": qd_recs[(30, 20, 1280)],
     }, {
         "name": "chol_inverse",
         "route": "cuda",

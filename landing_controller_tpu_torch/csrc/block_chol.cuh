@@ -1,12 +1,54 @@
-// Block-wide Cholesky factorization and inverse-from-factor in shared memory.
+// Inverse of one quasi-definite (or positive definite) matrix by one thread
+// block, in shared memory: the design shared by qd_inverse.cu and
+// chol_inverse.cu.
 //
-// Device functions shared by the port's block-inverse kernels
-// (qd_inverse.cu, chol_inverse.cu).  Every thread of the block calls them
-// together; they synchronize the block themselves.  Pivots follow the TPU
-// kernels' rule (landing_controller_tpu/ops/pallas_blocks.py:83-90):
-// rsqrt(max(d, 1e-30)), continuing past bad pivots, with the least pivot and
-// a non-finite-pivot flag folded into shared variables for the caller's
-// inertia test.
+// A block S = [[P, B'], [B, -D]] (P: np x np, D: nd x nd, both positive
+// definite) is factored as S = L J L' with J = diag(+1 (np times), -1 (nd
+// times)): a Cholesky whose pivot d_j = J_j * (trailing diagonal) is positive
+// in both parts.  The columns below np are exactly the Cholesky of the Schur
+// complement D + B P^-1 B', so the pivots are those of the two-Cholesky
+// scheme, and with M = L^-1
+//     S^-1 = M' J M = [[Pinv - E W E', E W], [W E', -W]].
+// A positive definite matrix is the case nd = 0.  Only the lower triangle of
+// S is read.  Pivots follow the TPU kernels' rule
+// (landing_controller_tpu/ops/pallas_blocks.py:83-90): rsqrt(max(d, 1e-30)),
+// carrying on past a bad pivot, the least pivot and a non-finite flag folded
+// for the caller's test ok = (least pivot > 0 and all finite).
+//
+// Steps (n = the size rounded up to a multiple of 4, identity padding):
+//  1. load: 16-byte accesses when the row length is a multiple of 4;
+//  2. factor by panels of kPanel = 8 columns (the last may be 4 wide):
+//     a. warp 0 takes the diagonal tile: every lane reads its lower triangle
+//        into registers and factors it alone (36 values; no shuffle and no
+//        barrier inside the pivot chain, one rsqrt instruction per pivot),
+//        lane c then solves for column c of the inverse X, which goes in the
+//        tile's place with zeros above the diagonal;
+//     b. every thread takes one row r below the tile: L21[r] = A21[r] X' J
+//        goes transposed into a kPanel x n scratch for the update, and
+//        T21[r] = L21[r] X goes in the place of A21[r], because step 3 needs
+//        L21 only as that product;
+//     c. the trailing lower triangle takes the rank-8 update, one 4x4
+//        register tile per thread from float4 reads of the scratch (two
+//        loads feed sixteen FMAs); warp 0 updates only the next diagonal
+//        tile (one element per lane) and goes on to step a for it while the
+//        other warps update the rest, so the longest serial chain of the
+//        kernel runs beside its widest product;
+//  3. M = L^-1 in place, panels from the last to the first: M21 = -M22 T21,
+//     one 1x4 strip per thread from float4 reads, held in registers over a
+//     barrier and then written;
+//  4. the lower triangle of M' J M, one 4x4 register tile per thread from
+//     float4 reads of M's rows, written to device memory with its mirror
+//     image by 16-byte stores: the output is symmetric bit for bit.
+// Two barriers per panel in step 2 and two in step 3 (42 in all at 84 wide,
+// where a column-at-a-time factorization took 252), no atomics, no reduction
+// whose order depends on timing.
+//
+// Shared-memory banks: a row stride that is a multiple of 4 and leaves 4
+// modulo 8 (60, 76, 84 as they are, 36, 52 for 48) puts the float4 accesses
+// of 8 consecutive rows (a quarter warp) into 8 distinct groups of 4 banks,
+// which steps 2b and 3 need; steps 2c and 4 read one row at a time, where
+// the lanes of a quarter warp share the first operand's address and take
+// consecutive float4 of the second.
 
 #pragma once
 
@@ -15,47 +57,427 @@
 
 namespace block_chol {
 
-// In-place right-looking Cholesky of the n x n lower triangle of A (row
-// stride ld).  Thread 0 folds each pivot into *min_piv / *bad.
-__device__ inline void chol_inplace(float* A, int n, int ld, float* min_piv, int* bad) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < n; ++j) {
-    __syncthreads();
-    const float d = A[j * ld + j];
-    if (tid == 0) {
-      if (!isfinite(d)) *bad = 1;
-      *min_piv = fminf(*min_piv, d);
-    }
-    const float inv_sq = rsqrtf(fmaxf(d, 1e-30f));
-    __syncthreads();
-    for (int i = j + tid; i < n; i += blockDim.x) A[i * ld + j] *= inv_sq;
-    __syncthreads();
-    const int r = n - j - 1;
-    for (int e = tid; e < r * r; e += blockDim.x) {
-      const int i = j + 1 + e / r;
-      const int k = j + 1 + e % r;
-      if (k <= i) A[i * ld + k] -= A[i * ld + j] * A[k * ld + j];
-    }
-  }
-  __syncthreads();
+constexpr int kPanel = 8;      // columns per panel
+constexpr int kMaxBlock = 84;  // widest matrix
+// Threads per block: 128, chosen by `python tests/probe_block_kernels.py`
+// (which builds this header with other values of the two macros below) on an
+// NVIDIA H100 80GB HBM3 (700 W), qd_inverse, CUDA events, median of 25, two
+// turns:
+//   threads   (36, 24) m = 128 (one wave)   (48, 36) m = 5120 (many waves)
+//      64        0.0196 / 0.0195 ms            0.3233 / 0.3218 ms
+//     128        0.0170 / 0.0169 ms            0.2712 / 0.2705 ms
+//     256        0.0169 / 0.0167 ms            0.3216 / 0.3212 ms
+// (64 threads are 8% faster at (36, 24), m = 1280 only: 13 blocks per SM hold
+// that launch in one wave.)  The compiler gives 128 threads 72 registers, so
+// 7 blocks per SM: registers, not shared memory, limit them.
+#ifndef BLOCK_CHOL_THREADS
+#define BLOCK_CHOL_THREADS 128
+#endif
+constexpr int kThreads = BLOCK_CHOL_THREADS;
+// Blocks per SM that the compiler sizes the registers for (__launch_bounds__).
+// 1 = no limit.  The same probe: 8 (64 registers) changes no time by more than
+// 2%, 10 (48 registers, spills) costs 15% at (48, 36), m = 5120.
+#ifndef BLOCK_CHOL_MIN_BLOCKS
+#define BLOCK_CHOL_MIN_BLOCKS 1
+#endif
+constexpr int kMinBlocks = BLOCK_CHOL_MIN_BLOCKS;
+
+// With -DBLOCK_CHOL_CLOCKS, threads 0 (warp 0) and 32 of block 0 add the
+// clock cycles they spend in each phase of inverse_block, and before each of
+// its barriers, into g_clocks[thread / 32][slot]: what a profiler cannot say
+// of the inside of a kernel (`python tests/probe_block_kernels.py --clocks`
+// prints them; tests/test_torch_kernel_on_cpu.py builds this variant too).
+constexpr int kClockSlots = 13;  // BLOCK_CHOL_STAMP(0) ... (12)
+#ifdef BLOCK_CHOL_CLOCKS
+__device__ long long g_clocks[2][kClockSlots];
+#define BLOCK_CHOL_STAMP(slot)                                      \
+  do {                                                              \
+    if (blockIdx.x == 0 && (threadIdx.x == 0 || threadIdx.x == 32)) { \
+      const long long now_ = clock64();                             \
+      g_clocks[threadIdx.x / 32][slot] += now_ - stamp_;            \
+      stamp_ = now_;                                                \
+    }                                                               \
+  } while (0)
+#else
+#define BLOCK_CHOL_STAMP(slot)
+#endif
+static_assert(kThreads >= 64 && kThreads % 32 == 0, "warp 0 and at least one more warp");
+
+__host__ __device__ constexpr int padded_size(int bs) { return (bs + 3) / 4 * 4; }
+__host__ __device__ constexpr int row_stride(int bs) {
+  return padded_size(bs) % 8 == 0 ? padded_size(bs) + 4 : padded_size(bs);
+}
+__host__ __device__ constexpr int num_tiles(int bs) {
+  return (padded_size(bs) / 4) * (padded_size(bs) / 4 + 1) / 2;
+}
+// entries of the table of lower-triangle positions: one per 4x4 tile, and at
+// least one per element of a diagonal tile's lower triangle
+__host__ __device__ constexpr int table_entries(int bs) {
+  return num_tiles(bs) > kPanel * (kPanel + 1) / 2 ? num_tiles(bs) : kPanel * (kPanel + 1) / 2;
+}
+// the matrix, the kPanel x n scratch, the table
+__host__ __device__ constexpr size_t smem_bytes(int bs) {
+  return sizeof(float) * (size_t)(padded_size(bs) * row_stride(bs) + kPanel * padded_size(bs)) +
+         (size_t)((2 * table_entries(bs) + 15) / 16 * 16);
 }
 
-// X = (L L')^-1 from the lower factor L (stride ld) into X (n x n, stride
-// n): thread c solves L y = e_c then L' x = y in column c of X.
-__device__ inline void chol_to_inverse(const float* L, int n, int ld, float* X) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    for (int i = 0; i < n; ++i) {
-      float s = (i == c) ? 1.0f : 0.0f;
-      for (int k = c; k < i; ++k) s -= L[i * ld + k] * X[k * n + c];
-      X[i * n + c] = (i < c) ? 0.0f : s / L[i * ld + i];
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// One-instruction reciprocal square root and reciprocal (about 1 ulp; inputs
+// below the normal range count as 0, which the 1e-30 pivot clamp never is).
+__device__ __forceinline__ float fast_rsqrt(float x) {
+#ifdef __CUDACC__
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+__device__ __forceinline__ float fast_rcp(float x) {
+#ifdef __CUDACC__
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / x;
+#endif
+}
+
+// acc (+/-)= a b' for a 4x4 register tile
+__device__ __forceinline__ void outer_add(float (&acc)[4][4], float4 a, float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+__device__ __forceinline__ void outer_sub(float (&acc)[4][4], float4 a, float4 b) {
+  outer_add(acc, make_float4(-a.x, -a.y, -a.z, -a.w), b);
+}
+
+// Step 2a, called by warp 0: the KB x KB diagonal tile at (k0, k0) becomes
+// the inverse of its signed Cholesky factor; the pivots fold into min_piv and
+// bad (the same values in every lane).  Every lane takes the tile's lower
+// triangle into registers and factors it alone, so no step of the pivot chain
+// waits for a shuffle; lane c then solves for column c of the inverse.
+template <int KB>
+__device__ __forceinline__ void diag_tile(float* A, int ld, int k0, int np, float& min_piv,
+                                          int& bad) {
+  const int lane = threadIdx.x & 31;
+  float a[KB][KB];  // the lower triangle: a[i][k], k <= i
+#pragma unroll
+  for (int i = 0; i < KB; ++i)
+#pragma unroll
+    for (int q = 0; q <= i / 4; ++q) {
+      const float4 v = ld4(A + (k0 + i) * ld + k0 + 4 * q);
+      a[i][4 * q] = v.x, a[i][4 * q + 1] = v.y, a[i][4 * q + 2] = v.z, a[i][4 * q + 3] = v.w;
     }
-    for (int i = n - 1; i >= 0; --i) {
-      float s = X[i * n + c];
-      for (int k = i + 1; k < n; ++k) s -= L[k * ld + i] * X[k * n + c];
-      X[i * n + c] = s / L[i * ld + i];
+  float rinv[KB];  // 1 / L_jj
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    const float sg = (k0 + j < np) ? 1.0f : -1.0f;
+    const float d = sg * a[j][j];
+    if (!isfinite(d)) bad = 1;
+    min_piv = fminf(min_piv, d);
+    const float s = fast_rsqrt(fmaxf(d, 1e-30f));
+    rinv[j] = fast_rcp(d * s);
+    const float ss = sg * s;
+#pragma unroll
+    for (int i = j; i < KB; ++i) a[i][j] *= ss;  // L[i][j]
+#pragma unroll
+    for (int i = j + 1; i < KB; ++i) {
+      const float nl = -sg * a[i][j];
+#pragma unroll
+      for (int k = j + 1; k <= i; ++k) a[i][k] = fmaf(nl, a[k][j], a[i][k]);
     }
   }
+  // lane c solves L x = e_c: column c of X = L^-1
+  const int c = lane % KB;  // lanes >= KB repeat columns and store nothing
+  float x[KB];
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    float acc = (i == c) ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < i; ++k) acc = fmaf(-a[i][k], x[k], acc);
+    x[i] = (i < c) ? 0.0f : acc * rinv[i];
+  }
+  __syncwarp();  // every lane has read the tile before any lane overwrites it
+  if (lane < KB) {
+#pragma unroll
+    for (int i = 0; i < KB; ++i) A[(k0 + i) * ld + k0 + lane] = x[i];
+  }
+}
+
+// Step 2c for the next diagonal tile alone, called by warp 0: the lower
+// triangle of the KB x KB tile at (r0, r0) takes A -= L21 J L21', one element
+// per lane and turn (tri[e] is also the e-th element of a lower triangle).
+template <int KB>
+__device__ __forceinline__ void diag_update(float* A, const float* Lt, const uchar2* tri, int ld,
+                                            int n, int k0, int r0, int np) {
+  for (int e = threadIdx.x & 31; e < KB * (KB + 1) / 2; e += 32) {
+    const uchar2 ij = tri[e];
+    const float* li = Lt + r0 + ij.x;
+    const float* lj = Lt + r0 + ij.y;
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c) {
+      const float p = li[c * n] * lj[c * n];
+      acc += (k0 + c < np) ? p : -p;
+    }
+    A[(r0 + ij.x) * ld + r0 + ij.y] -= acc;
+  }
+}
+
+// Step 2b: for every row r >= k0 + KB, L21[r] = A21[r] X' J into
+// Lt[c * n + r] and T21[r] = L21[r] X in the place of A21[r].
+template <int KB>
+__device__ __forceinline__ void panel_solve(float* A, float* Lt, int ld, int n, int k0, int np) {
+  const int r_first = k0 + KB + threadIdx.x;
+  if (r_first >= n) return;
+  float X[KB][KB];
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+#pragma unroll
+    for (int q = 0; q < KB / 4; ++q) {
+      const float4 v = ld4(A + (k0 + c) * ld + k0 + 4 * q);
+      X[c][4 * q] = v.x, X[c][4 * q + 1] = v.y, X[c][4 * q + 2] = v.z, X[c][4 * q + 3] = v.w;
+    }
+  for (int r = r_first; r < n; r += kThreads) {
+    float av[KB], l[KB], t[KB];
+#pragma unroll
+    for (int q = 0; q < KB / 4; ++q) {
+      const float4 v = ld4(A + r * ld + k0 + 4 * q);
+      av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z, av[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k <= c; ++k) acc = fmaf(av[k], X[c][k], acc);
+      l[c] = (k0 + c < np) ? acc : -acc;
+      Lt[c * n + r] = l[c];
+    }
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = c; k < KB; ++k) acc = fmaf(l[k], X[k][c], acc);
+      t[c] = acc;
+    }
+#pragma unroll
+    for (int q = 0; q < KB / 4; ++q)
+      st4(A + r * ld + k0 + 4 * q, make_float4(t[4 * q], t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]));
+  }
+}
+
+// Step 2c: A22 -= L21 J L21' on the lower triangle from row r0 = k0 + KB,
+// the tiles t_first, t_first + t_step, ... of that triangle.
+template <int KB>
+__device__ __forceinline__ void trailing_update(float* A, const float* Lt, const uchar2* tri, int ld,
+                                                int n, int k0, int np, int t_first, int t_step) {
+  const int t0 = (k0 + KB) / 4;
+  const int nt = n / 4 - t0;
+  const int count = nt * (nt + 1) / 2;
+  for (int t = t_first; t < count; t += t_step) {
+    const uchar2 ij = tri[t];
+    const int i0 = 4 * (t0 + ij.x), j0 = 4 * (t0 + ij.y);
+    float acc[4][4] = {};
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      const float4 a = ld4(Lt + c * n + i0);
+      const float4 b = ld4(Lt + c * n + j0);
+      if (k0 + c < np) outer_add(acc, a, b);
+      else outer_sub(acc, a, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* p = A + (i0 + i) * ld + j0;
+      float4 v = ld4(p);
+      v.x -= acc[i][0], v.y -= acc[i][1], v.z -= acc[i][2], v.w -= acc[i][3];
+      st4(p, v);
+    }
+  }
+}
+
+// Inverse of the instance S_g (bs x bs, contiguous) into out, its flag into
+// *ok.  BS_T > 0 fixes bs = BS_T and np = NP_T at compile time; BS_T = 0
+// takes them at run time.  np: the number of leading positive columns (at
+// least the padded size for a positive definite matrix).  Called by every
+// thread of a block of kThreads threads with smem_bytes(bs) of 16-byte
+// aligned shared memory.
+template <int BS_T, int NP_T>
+__device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
+                                              float* __restrict__ out,
+                                              unsigned char* __restrict__ ok, int bs_rt,
+                                              int np_rt, float* smem) {
+  const int bs = BS_T ? BS_T : bs_rt;
+  const int np = BS_T ? NP_T : np_rt;
+  const int n = padded_size(bs);
+  const int ld = row_stride(bs);
+  const int nt = n / 4;
+  const int tid = threadIdx.x;
+  constexpr int kMaxN = BS_T ? padded_size(BS_T) : kMaxBlock;
+  // 1x4 strips of the widest M21 (kMaxN - kPanel rows) per thread in step 3
+  constexpr int kStrips = (2 * (kMaxN - kPanel) + kThreads - 1) / kThreads;
+
+#ifdef BLOCK_CHOL_CLOCKS
+  long long stamp_ = clock64();
+#endif
+  float* A = smem;
+  float* Lt = A + n * ld;
+  uchar2* tri = reinterpret_cast<uchar2*>(Lt + kPanel * n);
+
+  // ---- 1. load; table: entry t is the t-th (row, column) of a lower
+  // triangle counted row by row, the same for every triangle size
+  if (bs % 4 == 0) {
+    const int q = bs / 4;
+    const float4* src = reinterpret_cast<const float4*>(S_g);
+    for (int e = tid; e < bs * q; e += kThreads) {
+      const int r = e / q, c = e - r * q;
+      st4(A + r * ld + 4 * c, __ldg(src + e));
+    }
+  } else {
+    for (int e = tid; e < n * n; e += kThreads) {
+      const int r = e / n, c = e - r * n;
+      float v = (r == c) ? ((r < np) ? 1.0f : -1.0f) : 0.0f;  // identity padding
+      if (r < bs && c < bs) v = S_g[r * bs + c];
+      A[r * ld + c] = v;
+    }
+  }
+  for (int t = tid; t < table_entries(bs); t += kThreads) {
+    int i = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
+    while ((i + 1) * (i + 2) / 2 <= t) ++i;
+    while (i * (i + 1) / 2 > t) --i;
+    tri[t] = make_uchar2((unsigned char)i, (unsigned char)(t - i * (i + 1) / 2));
+  }
+  BLOCK_CHOL_STAMP(0);  // load
   __syncthreads();
+  BLOCK_CHOL_STAMP(1);
+
+  // ---- 2. signed Cholesky by panels.  Warp 0 owns the diagonal tiles: in
+  // step c it updates only the next diagonal tile (which the first three 4x4
+  // tiles of the trailing triangle cover; the other warps start at the
+  // fourth), then factors and inverts it while they update the rest.
+  float min_piv = INFINITY;
+  int bad = 0;
+  const bool warp0 = tid < 32;
+  if (warp0) {
+    if (n >= kPanel) diag_tile<8>(A, ld, 0, np, min_piv, bad);
+    else diag_tile<4>(A, ld, 0, np, min_piv, bad);
+  }
+  BLOCK_CHOL_STAMP(2);  // first diagonal tile
+  __syncthreads();
+  BLOCK_CHOL_STAMP(3);
+  for (int k0 = 0; k0 + kPanel < n; k0 += kPanel) {
+    panel_solve<8>(A, Lt, ld, n, k0, np);
+    BLOCK_CHOL_STAMP(4);  // panels
+    __syncthreads();
+    BLOCK_CHOL_STAMP(5);
+    if (warp0) {
+      const int r0 = k0 + kPanel;
+      if (n - r0 >= kPanel) {
+        diag_update<8>(A, Lt, tri, ld, n, k0, r0, np);
+        __syncwarp();
+        diag_tile<8>(A, ld, r0, np, min_piv, bad);
+      } else {
+        diag_update<4>(A, Lt, tri, ld, n, k0, r0, np);
+        __syncwarp();
+        diag_tile<4>(A, ld, r0, np, min_piv, bad);
+      }
+    } else {
+      trailing_update<8>(A, Lt, tri, ld, n, k0, np, 3 + tid - 32, kThreads - 32);
+    }
+    BLOCK_CHOL_STAMP(6);  // next diagonal tile (warp 0) / trailing update
+    __syncthreads();
+    BLOCK_CHOL_STAMP(7);
+  }
+
+  // ---- 3. M = L^-1: M21 = -M22 T21, panels from the last to the first.
+  // Row i of M22 ends at column i; the float4 that holds it ends inside the
+  // diagonal tile, where step 2a stored zeros above the diagonal.
+  const int k_last = (n - 1) / kPanel * kPanel;
+  for (int k0 = k_last - kPanel; k0 >= 0; k0 -= kPanel) {
+    const int r0 = k0 + kPanel;
+    const int count = 2 * (n - r0);
+    float4 res[kStrips];
+#pragma unroll
+    for (int it = 0; it < kStrips; ++it) {
+      const int e = tid + it * kThreads;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e < count) {
+        const int i = r0 + (e >> 1);
+        const float* tcol = A + k0 + 4 * (e & 1);
+        const float* mrow = A + i * ld;
+#pragma unroll 2
+        for (int k = r0; k <= i; k += 4) {
+          const float4 m = ld4(mrow + k);
+          const float4 t0 = ld4(tcol + k * ld), t1 = ld4(tcol + (k + 1) * ld);
+          const float4 t2 = ld4(tcol + (k + 2) * ld), t3 = ld4(tcol + (k + 3) * ld);
+          acc.x -= m.x * t0.x + m.y * t1.x + m.z * t2.x + m.w * t3.x;
+          acc.y -= m.x * t0.y + m.y * t1.y + m.z * t2.y + m.w * t3.y;
+          acc.z -= m.x * t0.z + m.y * t1.z + m.z * t2.z + m.w * t3.z;
+          acc.w -= m.x * t0.w + m.y * t1.w + m.z * t2.w + m.w * t3.w;
+        }
+      }
+      res[it] = acc;
+    }
+    BLOCK_CHOL_STAMP(8);  // M21 products
+    __syncthreads();
+    BLOCK_CHOL_STAMP(9);
+#pragma unroll
+    for (int it = 0; it < kStrips; ++it) {
+      const int e = tid + it * kThreads;
+      if (e < count) st4(A + (r0 + (e >> 1)) * ld + k0 + 4 * (e & 1), res[it]);
+    }
+    BLOCK_CHOL_STAMP(10);  // M21 stores
+    __syncthreads();
+    BLOCK_CHOL_STAMP(11);
+  }
+
+  // ---- 4. the lower triangle of M' J M, written with its mirror image
+  const int k_neg = np < n ? np : n;  // first negative column
+  for (int t = tid; t < nt * (nt + 1) / 2; t += kThreads) {
+    const uchar2 ij = tri[t];
+    const int i0 = 4 * ij.x, j0 = 4 * ij.y;  // i0 >= j0
+    float acc[4][4] = {};
+    const int k_mid = i0 > k_neg ? i0 : k_neg;
+#pragma unroll 4
+    for (int k = i0; k < k_mid; ++k) outer_add(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
+#pragma unroll 4
+    for (int k = k_mid; k < n; ++k) outer_sub(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
+    if (i0 == j0) {  // one value for both sides of the diagonal
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = i + 1; j < 4; ++j) acc[i][j] = acc[j][i];
+    }
+    if (bs % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        st4(out + (i0 + i) * bs + j0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      if (i0 != j0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          st4(out + (j0 + j) * bs + i0, make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i0 + i < bs && j0 + j < bs) {
+            out[(i0 + i) * bs + j0 + j] = acc[i][j];
+            out[(j0 + j) * bs + i0 + i] = acc[i][j];
+          }
+    }
+  }
+  BLOCK_CHOL_STAMP(12);  // product and stores
+  if (tid == 0) *ok = (!bad && min_piv > 0.0f) ? 1 : 0;
 }
 
 }  // namespace block_chol

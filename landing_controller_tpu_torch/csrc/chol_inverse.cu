@@ -3,88 +3,80 @@
 // Replaces the Pallas TPU kernel `_chol_inverse_kernel`
 // (landing_controller_tpu/ops/pallas_blocks.py:137, wrapper `chol_inverse`
 // :272).  For each instance A (n x n, symmetric positive definite; only the
-// lower triangle is read) it computes A = L L' by a right-looking Cholesky,
-// A^-1 = L^-T L^-1 from the factor, and the flag ok = min(pivots) > 0, where
-// a non-finite pivot counts as a failure.  Pivots follow the TPU kernel's
-// rule: rsqrt(max(d, 1e-30)), continuing past bad pivots, so the output is
-// computed even when ok is false, and a positive pivot below the clamp
-// passes the test while the clamped factor overflows.
+// lower triangle is read) it computes A = L L', A^-1 = L^-T L^-1 and the
+// flag ok = min(pivots) > 0, where a non-finite pivot counts as a failure.
+// Pivots follow the TPU kernel's rule: rsqrt(max(d, 1e-30)), continuing past
+// bad pivots, so the output is written even when ok is false, and a positive
+// pivot below the clamp passes the test while the clamped factor overflows.
 //
-// Design: one thread block per instance.  A is loaded into shared memory
-// once (coalesced: each instance is a contiguous n*n run), factored in
-// place, inverted column by column into a second shared buffer, and the
-// full symmetric inverse is written once.  The factorization and the
-// inverse-from-factor are the device functions of block_chol.cuh, shared
-// with qd_inverse.cu.  The TPU version's 128-lane batch layout and its
-// identity padding are not carried over: the batch is the grid.
+// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): an instance reads and writes 8 n^2 bytes and does about n^3
+// operations (n^3/3 each for the factor, its inverse and the product).  At
+// n = 48, m = 5120: 94 MB (0.028 ms) against 0.57 GFLOP (0.008 ms): bound by
+// bytes; a single wave of blocks is bound by the latency of one instance.
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): an
-// instance reads and writes 2 * 4 n^2 bytes and does ~n^3 operations
-// (n^3/3 for the factor, 2 n^3/3 for the inverse).  At n = 48, m = 5120:
-// 94 MB (0.028 ms) against 0.57 GFLOP (0.008 ms): bound by bytes.  This
-// first version is simple: the column solves use one thread per column
-// (at most n of the block's 128 threads) and the Cholesky synchronizes the
-// block three times per column.
+// Design: one thread block per instance, the batch is the grid; the
+// computation is the device function of block_chol.cuh, shared with
+// qd_inverse.cu, with every column positive: Cholesky by panels of 8 columns
+// (diagonal tiles factored and inverted by one warp in registers), L^-1
+// formed in place by small products, and the lower triangle of L^-T L^-1
+// stored with its mirror image, so the output is symmetric bit for bit.
+// Shared memory holds A once (plus an 8 x n scratch): 11.7 KB at n = 48; 7
+// blocks of 128 threads stay on an SM, limited by their registers.
+// n = 36 and n = 48 are compile-time instances; any other n up to 84 goes
+// through the instance with a run-time size.
 //
 // Plain C interface (bound from Python with ctypes): the wrapper passes
 // device pointers and the CUDA stream, and raises on a nonzero return.
 
 #include <cuda_runtime.h>
-#include <math.h>
 
 #include "block_chol.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+template <int N_T>
+__global__ void __launch_bounds__(block_chol::kThreads, block_chol::kMinBlocks)
+    chol_inverse_kernel(const float* __restrict__ A_all, float* __restrict__ out_all,
+                        unsigned char* __restrict__ ok_all, int n_rt) {
+  extern __shared__ float4 smem4[];
+  const int n = N_T ? N_T : n_rt;
+  const size_t offset = (size_t)blockIdx.x * n * n;
+  // every column positive: np covers the padding too
+  block_chol::inverse_block<N_T, block_chol::padded_size(N_T)>(
+      A_all + offset, out_all + offset, ok_all + blockIdx.x, n, block_chol::padded_size(n),
+      reinterpret_cast<float*>(smem4));
+}
 
-__global__ void chol_inverse_kernel(const float* __restrict__ A_all, float* __restrict__ out_all,
-                                    unsigned char* __restrict__ ok_all, int n) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const long long inst = blockIdx.x;
-  const float* A_g = A_all + inst * n * n;
-  float* out = out_all + inst * n * n;
+using Kernel = void (*)(const float*, float*, unsigned char*, int);
 
-  float* A = smem;      // n*n: the block; its lower triangle becomes L
-  float* X = A + n * n; // n*n: the inverse, column by column
-  __shared__ float min_piv;
-  __shared__ int bad;
-
-  for (int e = tid; e < n * n; e += blockDim.x) A[e] = A_g[e];
-  if (tid == 0) {
-    min_piv = INFINITY;
-    bad = 0;
-  }
-  __syncthreads();
-
-  block_chol::chol_inplace(A, n, n, &min_piv, &bad);
-  block_chol::chol_to_inverse(A, n, n, X);
-
-  // the column solves agree across the diagonal up to rounding: write the
-  // symmetric mean
-  for (int e = tid; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    out[e] = 0.5f * (X[i * n + j] + X[j * n + i]);
-  }
-  if (tid == 0) ok_all[inst] = (!bad && min_piv > 0.0f) ? 1 : 0;
+Kernel select_kernel(int n) {
+  if (n == 36) return chol_inverse_kernel<36>;
+  if (n == 48) return chol_inverse_kernel<48>;
+  return chol_inverse_kernel<0>;
 }
 
 }  // namespace
 
-extern "C" size_t chol_inverse_smem_bytes(int n) { return sizeof(float) * (size_t)(2 * n * n); }
+extern "C" size_t chol_inverse_smem_bytes(int n) { return block_chol::smem_bytes(n); }
 
-// A: (m, n, n) f32, out: (m, n, n) f32, ok: (m,) bool; all on the device.
-// Returns the cudaError_t of the launch (0 on success).
+// Blocks of the instance for n that one SM holds at a time, or the negated
+// cudaError_t.
+extern "C" int chol_inverse_blocks_per_sm(int n) {
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, select_kernel(n), block_chol::kThreads, chol_inverse_smem_bytes(n));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// A: (m, n, n) f32, out: (m, n, n) f32, ok: (m,) bool; all on the device, A
+// and out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int chol_inverse_launch(const float* A, float* out, unsigned char* ok, int m, int n,
                                    void* stream) {
   if (m <= 0) return 0;
-  const size_t smem = chol_inverse_smem_bytes(n);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  chol_inverse_kernel<<<m, kThreads, smem, (cudaStream_t)stream>>>(A, out, ok, n);
+  if (n < 1 || n > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
+  select_kernel(n)<<<m, block_chol::kThreads, chol_inverse_smem_bytes(n), (cudaStream_t)stream>>>(
+      A, out, ok, n);
   return (int)cudaGetLastError();
 }

@@ -3,141 +3,99 @@
 // Replaces the Pallas TPU kernel `_qd_inverse_kernel`
 // (landing_controller_tpu/ops/pallas_blocks.py:111, wrapper `qd_inverse`
 // :154).  For each instance S = [[P, B'], [B, -D]] (P: np x np, D: nd x nd,
-// both positive definite) it computes, by two Choleskys and a Schur
-// complement,
-//     Pinv = P^-1,  E = Pinv B',  W = (D + B E)^-1,
-//     Sinv = [[Pinv - E W E', E W], [W E', -W]],
+// both positive definite) it computes
+//     Sinv = [[Pinv - E W E', E W], [W E', -W]],  E = Pinv B',  W = (D + B E)^-1
 // and the inertia flag ok = min(pivots of P and of D + B E) > 0, where a
 // non-finite pivot counts as a failure.  Pivots follow the TPU kernel's
 // rule: rsqrt(max(d, 1e-30)), continuing past bad pivots, so every output is
-// computed even when ok is false.
+// written even when ok is false.
 //
-// Design: one thread block per instance.  S is loaded into shared memory
-// once (coalesced: each instance is a contiguous bs*bs run), every
-// intermediate (L_P, Pinv, E, L_Dt, W, E W) stays in shared memory, and
-// Sinv is written once.  The TPU version's 128-lane batch layout and its
-// identity padding are not carried over: the batch is the grid.
+// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): an instance reads and writes 8 bs^2 bytes and does about bs^3
+// operations, so at (np, nd) = (48, 36), m = 5120 the card needs 0.086 ms for
+// the bytes and 0.05 ms for the operations, and at (36, 24), m = 1280 0.011
+// ms: bound by bytes.  Five of the six launches of a cyclic-reduction
+// factorization are a single wave of blocks and are bound by the latency of
+// one instance: its chain of dependent steps, not its arithmetic.
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at
-// (np, nd) = (36, 24) an instance reads 14.4 KB and writes 14.4 KB and does
-// ~0.27 MFLOP, so the largest level of the srbm_lcp bench path (m = 1280)
-// moves ~37 MB (~11 us) against ~0.34 GFLOP (~5 us): bound by bytes.  The
-// smaller levels (m = 640 .. 128) are bound by launch latency.  This first
-// version is simple: triangular solves use one thread per column and the
-// Choleskys synchronize the block three times per column.
+// Design: one thread block per instance, the batch is the grid; the whole
+// computation is the device function of block_chol.cuh (its note has the
+// steps): a signed Cholesky of S by panels of 8 columns whose diagonal tiles
+// one warp factors and inverts in registers, every other step a small
+// product on register tiles with float4 shared-memory reads, L^-1 formed in
+// place, and the lower triangle of Sinv = L^-T J L^-1 stored with its mirror
+// image.  Shared memory holds S once (plus an 8 x bs scratch): 16.6 KB at
+// (36, 24) and 31.4 KB at (48, 36); 7 blocks of 128 threads stay on an SM,
+// limited by their 72 registers a thread.  The sizes the solver paths run, (36,
+// 24), (48, 36) and (36, 40), are compile-time instances; any other size up
+// to 84 wide goes through the instance with run-time sizes (scalar loads and
+// stores where the width is no multiple of 4).
 //
 // Plain C interface (bound from Python with ctypes): the wrapper passes
 // device pointers and the CUDA stream, and raises on a nonzero return.
 
 #include <cuda_runtime.h>
-#include <math.h>
 
 #include "block_chol.cuh"
 
 namespace {
 
-using block_chol::chol_inplace;
-using block_chol::chol_to_inverse;
+template <int NP_T, int ND_T>
+__global__ void __launch_bounds__(block_chol::kThreads, block_chol::kMinBlocks)
+    qd_inverse_kernel(const float* __restrict__ S_all, float* __restrict__ out_all,
+                      unsigned char* __restrict__ ok_all, int np_, int nd) {
+  extern __shared__ float4 smem4[];
+  const int bs = (NP_T + ND_T) ? NP_T + ND_T : np_ + nd;
+  const size_t offset = (size_t)blockIdx.x * bs * bs;
+  block_chol::inverse_block<NP_T + ND_T, NP_T>(S_all + offset, out_all + offset,
+                                               ok_all + blockIdx.x, bs, np_,
+                                               reinterpret_cast<float*>(smem4));
+}
 
-constexpr int kThreads = 128;
+using Kernel = void (*)(const float*, float*, unsigned char*, int, int);
 
-__global__ void qd_inverse_kernel(const float* __restrict__ S_all, float* __restrict__ out_all,
-                                  unsigned char* __restrict__ ok_all, int np_, int nd) {
-  extern __shared__ float smem[];
-  const int bs = np_ + nd;
-  const int tid = threadIdx.x;
-  const long long inst = blockIdx.x;
-  const float* S_g = S_all + inst * bs * bs;
-  float* out = out_all + inst * bs * bs;
-
-  float* S = smem;                  // bs*bs: the block; P's triangle becomes L_P
-  float* Pinv = S + bs * bs;        // np*np
-  float* E = Pinv + np_ * np_;      // np*nd
-  float* Dt = E + np_ * nd;         // nd*nd: D + B E, then L_Dt
-  float* W = Dt + nd * nd;          // nd*nd
-  float* EW = W + nd * nd;          // np*nd
-  __shared__ float min_piv;
-  __shared__ int bad;
-
-  for (int e = tid; e < bs * bs; e += blockDim.x) S[e] = S_g[e];
-  if (tid == 0) {
-    min_piv = INFINITY;
-    bad = 0;
-  }
-  __syncthreads();
-
-  // P = L_P L_P' in place, Pinv from the factor
-  chol_inplace(S, np_, bs, &min_piv, &bad);
-  chol_to_inverse(S, np_, bs, Pinv);
-
-  // E = Pinv B'  (B is rows np.. of S, columns 0..np)
-  for (int e = tid; e < np_ * nd; e += blockDim.x) {
-    const int i = e / nd, j = e % nd;
-    const float* brow = S + (np_ + j) * bs;
-    float s = 0.0f;
-    for (int k = 0; k < np_; ++k) s += Pinv[i * np_ + k] * brow[k];
-    E[e] = s;
-  }
-  __syncthreads();
-
-  // Dt = D + B E with D = -S[np:, np:]
-  for (int e = tid; e < nd * nd; e += blockDim.x) {
-    const int i = e / nd, j = e % nd;
-    const float* brow = S + (np_ + i) * bs;
-    float s = -S[(np_ + i) * bs + np_ + j];
-    for (int k = 0; k < np_; ++k) s += brow[k] * E[k * nd + j];
-    Dt[e] = s;
-  }
-  chol_inplace(Dt, nd, nd, &min_piv, &bad);
-  chol_to_inverse(Dt, nd, nd, W);
-
-  // EW = E W
-  for (int e = tid; e < np_ * nd; e += blockDim.x) {
-    const int i = e / nd, j = e % nd;
-    float s = 0.0f;
-    for (int k = 0; k < nd; ++k) s += E[i * nd + k] * W[k * nd + j];
-    EW[e] = s;
-  }
-  __syncthreads();
-
-  // Sinv = [[Pinv - EW E', EW], [EW', -W]]
-  for (int e = tid; e < bs * bs; e += blockDim.x) {
-    const int i = e / bs, j = e % bs;
-    float v;
-    if (i < np_ && j < np_) {
-      float s = Pinv[i * np_ + j];
-      for (int k = 0; k < nd; ++k) s -= EW[i * nd + k] * E[j * nd + k];
-      v = s;
-    } else if (i < np_) {
-      v = EW[i * nd + (j - np_)];
-    } else if (j < np_) {
-      v = EW[j * nd + (i - np_)];
-    } else {
-      v = -W[(i - np_) * nd + (j - np_)];
-    }
-    out[e] = v;
-  }
-  if (tid == 0) ok_all[inst] = (!bad && min_piv > 0.0f) ? 1 : 0;
+Kernel select_kernel(int np_, int nd) {
+  if (np_ == 36 && nd == 24) return qd_inverse_kernel<36, 24>;
+  if (np_ == 48 && nd == 36) return qd_inverse_kernel<48, 36>;
+  if (np_ == 36 && nd == 40) return qd_inverse_kernel<36, 40>;
+  return qd_inverse_kernel<0, 0>;
 }
 
 }  // namespace
 
 extern "C" size_t qd_inverse_smem_bytes(int np_, int nd) {
-  const int bs = np_ + nd;
-  return sizeof(float) * (size_t)(bs * bs + np_ * np_ + 2 * np_ * nd + 2 * nd * nd);
+  return block_chol::smem_bytes(np_ + nd);
 }
 
-// S: (m, bs, bs) f32, out: (m, bs, bs) f32, ok: (m,) bool; all on the device.
-// Returns the cudaError_t of the launch (0 on success).
+// Blocks of the instance for (np, nd) that one SM holds at a time, or the
+// negated cudaError_t.
+extern "C" int qd_inverse_blocks_per_sm(int np_, int nd) {
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, select_kernel(np_, nd), block_chol::kThreads, qd_inverse_smem_bytes(np_, nd));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// S: (m, bs, bs) f32, out: (m, bs, bs) f32, ok: (m,) bool; all on the device,
+// S and out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int qd_inverse_launch(const float* S, float* out, unsigned char* ok, int m, int np_,
                                  int nd, void* stream) {
   if (m <= 0) return 0;
-  const size_t smem = qd_inverse_smem_bytes(np_, nd);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qd_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  qd_inverse_kernel<<<m, kThreads, smem, (cudaStream_t)stream>>>(S, out, ok, np_, nd);
+  if (np_ < 1 || nd < 0 || np_ + nd > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
+  select_kernel(np_, nd)<<<m, block_chol::kThreads, qd_inverse_smem_bytes(np_, nd),
+                           (cudaStream_t)stream>>>(S, out, ok, np_, nd);
   return (int)cudaGetLastError();
 }
+
+#ifdef BLOCK_CHOL_CLOCKS
+// The 2 x kClockSlots cycle counters of block_chol.cuh to the host / back to
+// zero.
+extern "C" int qd_inverse_read_clocks(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, block_chol::g_clocks, sizeof(block_chol::g_clocks));
+}
+extern "C" int qd_inverse_zero_clocks() {
+  const long long zeros[2 * block_chol::kClockSlots] = {};
+  return (int)cudaMemcpyToSymbol(block_chol::g_clocks, zeros, sizeof(zeros));
+}
+#endif

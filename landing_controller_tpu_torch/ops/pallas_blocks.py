@@ -10,8 +10,10 @@ and returns a per-instance inertia flag ``ok``.  It replaces the Pallas TPU
 kernel ``_qd_inverse_kernel`` (landing_controller_tpu/ops/pallas_blocks.py:111).
 
 - On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/qd_inverse.cu`` (f32 only), or raises.  Its ``ok`` follows the TPU
-  kernel: ok = min(pivots) > 0, a non-finite pivot fails, and every output
+  ``csrc/qd_inverse.cu`` (f32 only), or raises.  The kernel runs the same
+  scheme as one signed Cholesky S = L J L' by panels (``csrc/block_chol.cuh``)
+  and returns a result that is symmetric bit for bit.  Its ``ok`` follows the
+  TPU kernel: ok = min(pivots) > 0, a non-finite pivot fails, and every output
   is computed past bad pivots.  On a block that is singular in f32 (a
   positive pivot below the 1e-30 clamp) the outputs may overflow while ok
   holds, as the TPU kernel's would.
@@ -28,7 +30,10 @@ or raises, and follows the TPU kernel's pivot rule; a CPU tensor goes to the
 plain version :func:`chol_inverse_ref` (NaN where the factorization fails).
 
 ``qd_inverse.launches`` and ``chol_inverse.launches`` count kernel launches
-(CPU calls do not count).
+(CPU calls do not count).  ``qd_inverse_smem_bytes`` / ``chol_inverse_smem_bytes``
+mirror the kernels' shared-memory layout, ``library_smem_bytes`` reads the
+same figure from the built library, and ``blocks_per_sm`` asks the card how
+many blocks of a kernel instance one SM holds.
 """
 
 from __future__ import annotations
@@ -41,8 +46,42 @@ from ._build import load_library
 
 __all__ = ["qd_inverse", "qd_inverse_ref", "make_qd_inverse", "chol_inverse", "chol_inverse_ref"]
 
-# the widest block either kernel's shared-memory layout is sized for
+# the widest block either kernel takes
 MAX_BLOCK = 84
+# the kernels' panel width (csrc/block_chol.cuh: kPanel)
+PANEL = 8
+
+
+def padded_size(bs: int) -> int:
+    """Rows of a block in the kernels' shared memory: bs rounded up to the
+    4-wide register tile (identity padding)."""
+    return (bs + 3) // 4 * 4
+
+
+def row_stride(bs: int) -> int:
+    """Floats between two rows in shared memory: a multiple of 4 that leaves
+    4 modulo 8, so that float4 accesses to consecutive rows fall into
+    distinct banks."""
+    n = padded_size(bs)
+    return n + 4 if n % 8 == 0 else n
+
+
+def block_smem_bytes(bs: int) -> int:
+    """Dynamic shared memory of one kernel block for a bs-wide matrix (the
+    mirror of ``block_chol::smem_bytes``): the matrix, a PANEL x n scratch
+    and a table of lower-triangle positions (two bytes for each 4x4 tile, and
+    at least for each element of a diagonal tile's lower triangle)."""
+    n = padded_size(bs)
+    entries = max((n // 4) * (n // 4 + 1) // 2, PANEL * (PANEL + 1) // 2)
+    return 4 * (n * row_stride(bs) + PANEL * n) + (2 * entries + 15) // 16 * 16
+
+
+def qd_inverse_smem_bytes(np_: int, nd: int) -> int:
+    return block_smem_bytes(np_ + nd)
+
+
+def chol_inverse_smem_bytes(n: int) -> int:
+    return block_smem_bytes(n)
 
 
 def qd_inverse_ref(S, np_: int, nd: int):
@@ -76,28 +115,72 @@ def qd_inverse_ref(S, np_: int, nd: int):
     return Sinv, ok_p & ok_d
 
 
+def _aligned(x):
+    """x contiguous and 16-byte aligned (the kernels' float4 accesses)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+_functions: dict = {}
+
+
+def _function(name: str, symbol: str, n_sizes: int, launch: bool, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its ctypes
+    signature set, looked up once."""
+    fn = _functions.get(symbol)
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        sizes = [ctypes.c_int] * n_sizes
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + sizes + [ctypes.c_void_p] \
+            if launch else sizes
+        fn.restype = restype
+        _functions[symbol] = fn
+    return fn
+
+
+def _launch(name: str, x, *sizes):
+    """Launch ``<name>_launch`` of ``csrc/<name>.cu`` on the blocks x (m, k, k)
+    with the integer arguments ``sizes``, on the current stream; returns
+    (inverse, ok)."""
+    m = x.shape[0]
+    out = torch.empty_like(x)
+    ok = torch.empty(m, dtype=torch.bool, device=x.device)
+    fn = _function(name, f"{name}_launch", len(sizes), launch=True)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), out.data_ptr(), ok.data_ptr(), m, *sizes, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out, ok
+
+
+def blocks_per_sm(name: str, *sizes) -> int:
+    """Thread blocks of the kernel instance for ``sizes`` ((np, nd) for
+    "qd_inverse", (n,) for "chol_inverse") that one SM holds at a time."""
+    blocks = _function(name, f"{name}_blocks_per_sm", len(sizes), launch=False)(*sizes)
+    if blocks < 0:
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {-blocks}")
+    return blocks
+
+
+def library_smem_bytes(name: str, *sizes) -> int:
+    """Dynamic shared memory that the built library gives one block of the
+    kernel instance for ``sizes``: the figure that sizes its launches, which
+    :func:`block_smem_bytes` mirrors."""
+    fn = _function(name, f"{name}_smem_bytes", len(sizes), launch=False, restype=ctypes.c_size_t)
+    return int(fn(*sizes))
+
+
 def _qd_inverse_cuda(S, np_: int, nd: int):
     if S.dtype != torch.float32:
         raise TypeError(f"qd_inverse kernel takes float32, got {S.dtype}")
     if S.dim() != 3 or S.shape[1] != np_ + nd or S.shape[2] != np_ + nd:
         raise ValueError(f"qd_inverse expects (m, {np_ + nd}, {np_ + nd}), got {tuple(S.shape)}")
-    if np_ + nd > MAX_BLOCK:
-        raise ValueError(f"qd_inverse kernel takes blocks up to {MAX_BLOCK} wide, got {np_ + nd}")
-    S = S.contiguous()
-    m = S.shape[0]
-    out = torch.empty_like(S)
-    ok = torch.empty(m, dtype=torch.bool, device=S.device)
-    lib = load_library("qd_inverse")
-    fn = lib.qd_inverse_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    rc = fn(S.data_ptr(), out.data_ptr(), ok.data_ptr(), m, np_, nd, stream)
-    if rc != 0:
-        raise RuntimeError(f"qd_inverse kernel launch failed: cudaError {rc}")
+    if np_ < 1 or nd < 0 or np_ + nd > MAX_BLOCK:
+        raise ValueError(f"qd_inverse kernel takes blocks up to {MAX_BLOCK} wide with np >= 1, "
+                         f"got ({np_}, {nd})")
+    out = _launch("qd_inverse", _aligned(S), np_, nd)
     qd_inverse.launches += 1
-    return out, ok
+    return out
 
 
 def qd_inverse(S, np_: int, nd: int):
@@ -140,23 +223,11 @@ def _chol_inverse_cuda(A):
         raise TypeError(f"chol_inverse kernel takes float32, got {A.dtype}")
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"chol_inverse expects (m, n, n), got {tuple(A.shape)}")
-    if A.shape[1] > MAX_BLOCK:
+    if not 1 <= A.shape[1] <= MAX_BLOCK:
         raise ValueError(f"chol_inverse kernel takes blocks up to {MAX_BLOCK} wide, got {A.shape[1]}")
-    A = A.contiguous()
-    m, n = A.shape[0], A.shape[1]
-    out = torch.empty_like(A)
-    ok = torch.empty(m, dtype=torch.bool, device=A.device)
-    lib = load_library("chol_inverse")
-    fn = lib.chol_inverse_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = fn(A.data_ptr(), out.data_ptr(), ok.data_ptr(), m, n, stream)
-    if rc != 0:
-        raise RuntimeError(f"chol_inverse kernel launch failed: cudaError {rc}")
+    out = _launch("chol_inverse", _aligned(A), A.shape[1])
     chol_inverse.launches += 1
-    return out, ok
+    return out
 
 
 def chol_inverse(A):

@@ -56,8 +56,31 @@ def test_launches_per_factor_match_the_factorization(nb):
     fac = cri_factor(A.clone(), C, counting)
     assert bool(fac.ok)
     assert len(calls) == chip_smoke.cr_launches_per_factor(nb)
+    assert calls == chip_smoke.cr_launch_sizes(nb)
     if nb == 21:
         assert calls == [10, 5, 3, 1, 1, 1]
+
+
+@pytest.mark.parametrize("lanes,candidates,want", [
+    (64, 2, [1280, 640, 384, 128, 128, 128]),      # the srbm_lcp path: five of six are one wave
+    (128, 4, [5120, 2560, 1536, 512, 512, 512]),   # the kinodynamic path
+])
+def test_launch_sizes_of_one_factorization(lanes, candidates, want):
+    """The batch sizes of the block-inverse calls of a 21-block factorization
+    of (lanes, candidates) systems, from the helper and from cri_factor."""
+    calls = []
+    fn = make_qd_inverse(3, 2)
+
+    def counting(S):
+        calls.append(S.reshape((-1,) + S.shape[-2:]).shape[0])
+        return fn(S)
+
+    diag = torch.tensor([1.0, 1.0, 1.0, -1.0, -1.0], dtype=torch.float64)
+    A = (torch.eye(5, dtype=torch.float64) * diag[:, None]).expand(lanes, candidates, 21, 5, 5)
+    C = torch.zeros((lanes, candidates, 20, 5, 5), dtype=torch.float64)
+    fac = cri_factor(A.clone(), C, counting)
+    assert bool(fac.ok.all())
+    assert calls == want == chip_smoke.cr_launch_sizes(21, lanes, candidates)
 
 
 def test_bounds_from_shapes():

@@ -5,11 +5,15 @@ skip where ``torch.cuda.is_available()`` is False.  On the card run them
 with ``python -m pytest tests/test_torch_cuda.py``.
 """
 
+import ctypes
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from landing_controller_tpu_torch.ops import cri_factor, cri_solve, make_qd_inverse
+from landing_controller_tpu_torch.ops import cri_factor, cri_solve, make_qd_inverse, pallas_blocks
 from landing_controller_tpu_torch.ops.pallas_blocks import (chol_inverse, chol_inverse_ref, qd_inverse,
                                                            qd_inverse_ref)
 
@@ -40,7 +44,8 @@ def _random_qd_blocks(rng, m, np_, nd):
 
 # rtol=atol=2e-4: f32 with a different summation order than the plain
 # version (the JAX package's own kernel-vs-reference tolerance)
-@pytest.mark.parametrize("np_,nd,m", [(7, 4, 5), (36, 24, 1280), (48, 36, 64), (36, 40, 64)])
+@pytest.mark.parametrize("np_,nd,m", [(7, 4, 5), (36, 24, 1280), (48, 36, 64), (36, 40, 64),
+                                      (30, 20, 64), (48, 36, 5120)])
 def test_kernel_matches_plain(dev, np_, nd, m):
     S = _random_qd_blocks(np.random.default_rng(m), m, np_, nd)
     S[1, 0, 0] = -5.0  # indefinite: ok must be False
@@ -51,6 +56,23 @@ def test_kernel_matches_plain(dev, np_, nd, m):
     assert torch.equal(ok_k, ok_p) and not bool(ok_k[1]) and int(ok_k.sum()) == m - 1
     assert torch.isfinite(out_k[ok_k]).all()
     torch.testing.assert_close(out_k[ok_k], out_p[ok_k], rtol=2e-4, atol=2e-4)
+
+
+# the compile-time instances, the run-time instance ((30, 20) and (7, 4), whose
+# width 11 is no multiple of 4), one block and one block more than the card's
+# 132 SMs
+@pytest.mark.parametrize("m", [1, 133])
+@pytest.mark.parametrize("np_,nd", [(36, 24), (48, 36), (36, 40), (30, 20), (7, 4)])
+def test_kernel_instances_and_batch_sizes(dev, np_, nd, m):
+    S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(np_ + m), m, np_, nd), device=dev)
+    out_k, ok_k = qd_inverse(S, np_, nd)
+    out_p, ok_p = qd_inverse_ref(S, np_, nd)
+    torch.cuda.synchronize()
+    assert bool(ok_k.all()) and bool(ok_p.all())
+    torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out_k, out_k.transpose(1, 2))  # symmetric bit for bit
+    again, ok_again = qd_inverse(S, np_, nd)
+    assert torch.equal(again, out_k) and torch.equal(ok_again, ok_k)  # and repeatable
 
 
 def test_kernel_follows_pallas_pivot_clamp(dev):
@@ -121,6 +143,89 @@ def test_chol_kernel_matches_plain(dev, n, m):
     assert torch.isfinite(out_k[ok_k]).all()
     torch.testing.assert_close(out_k[ok_k], out_p[ok_k], rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(out_k[ok_k], out_k[ok_k].transpose(1, 2), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 133])
+@pytest.mark.parametrize("n", [36, 48, 24, 5, 84])
+def test_chol_kernel_instances_and_batch_sizes(dev, n, m):
+    A = torch.as_tensor(_random_spd(np.random.default_rng(n + m), m, n), device=dev)
+    out_k, ok_k = chol_inverse(A)
+    out_p, ok_p = chol_inverse_ref(A)
+    torch.cuda.synchronize()
+    assert bool(ok_k.all()) and bool(ok_p.all())
+    torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out_k, out_k.transpose(1, 2))
+    again, ok_again = chol_inverse(A)
+    assert torch.equal(again, out_k) and torch.equal(ok_again, ok_k)
+
+
+def test_kernels_take_views_and_the_current_stream(dev):
+    """Every second block of a larger batch, a view that starts 4 bytes into
+    its buffer (not 16-byte aligned) and a launch on another stream than the
+    default give the bits of a plain contiguous launch."""
+    S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(2), 64, 36, 24), device=dev)
+    A = torch.as_tensor(_random_spd(np.random.default_rng(2), 64, 48), device=dev)
+    for fn, x in ((lambda t: qd_inverse(t, 36, 24), S), (chol_inverse, A)):
+        want, ok = fn(x)
+        assert bool(ok.all())
+        strided = torch.repeat_interleave(x, 2, dim=0)[::2]
+        assert not strided.is_contiguous()
+        assert torch.equal(fn(strided)[0], want)
+        flat = torch.empty(x.numel() + 1, device=dev)
+        flat[1:] = x.flatten()
+        shifted = flat[1:].view(x.shape)
+        assert shifted.data_ptr() % 16 == 4
+        assert torch.equal(fn(shifted)[0], want)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            other, ok_other = fn(x)
+        stream.synchronize()
+        assert torch.equal(other, want) and bool(ok_other.all())
+
+
+def test_occupancy_and_shared_memory_of_the_paths_instances(dev):
+    """The card holds at least twice the three blocks per SM of the first
+    kernel at the kinodynamic shape, and the library's shared-memory size is
+    the Python mirror's."""
+    assert pallas_blocks.blocks_per_sm("qd_inverse", 48, 36) >= 6
+    assert pallas_blocks.blocks_per_sm("qd_inverse", 36, 24) >= 6
+    assert pallas_blocks.blocks_per_sm("chol_inverse", 48) >= 6
+    for np_, nd in ((36, 24), (48, 36), (36, 40), (7, 4), (30, 20)):
+        assert (pallas_blocks.library_smem_bytes("qd_inverse", np_, nd)
+                == pallas_blocks.qd_inverse_smem_bytes(np_, nd))
+    for n in (5, 24, 36, 48, 84):
+        assert (pallas_blocks.library_smem_bytes("chol_inverse", n)
+                == pallas_blocks.chol_inverse_smem_bytes(n))
+
+
+def test_build_variants_of_the_probe_compile_and_agree(dev):
+    """tests/probe_block_kernels.py builds the header for other numbers of
+    threads per block and with its clock stamps: two of those builds launch
+    and agree with the plain version, and the stamped one counts cycles in
+    every phase it names."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_block_kernels",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_block_kernels.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(4), 133, 48, 36), device=dev)
+    want, ok_want = qd_inverse_ref(S, 48, 36)
+    stream = torch.cuda.current_stream().cuda_stream
+    for threads, min_blocks, clocks in ((64, 8, False), (128, 1, True)):
+        lib = probe.build(threads, min_blocks, clocks=clocks)
+        out, ok = torch.empty_like(S), torch.empty(133, dtype=torch.bool, device=dev)
+        if clocks:
+            assert lib.qd_inverse_zero_clocks() == 0
+        assert lib.qd_inverse_launch(S.data_ptr(), out.data_ptr(), ok.data_ptr(), 133, 48, 36,
+                                     stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(ok, ok_want) and bool(ok.all())
+        torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+        if clocks:
+            counters = (ctypes.c_longlong * (2 * len(probe.PHASES)))()
+            assert lib.qd_inverse_read_clocks(counters) == 0
+            assert min(counters) > 0
 
 
 def test_chol_kernel_follows_pallas_pivot_clamp(dev):
