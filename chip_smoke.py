@@ -33,8 +33,23 @@ Phases (any failure exits nonzero, before the result line):
    captured KKT blocks of both families: its launch count, then the kernel
    against its plain version and an f64 inverse;
 9. profile: host time, device time and kernel launches per IP iteration at
-   B=64 for the srbm_lcp and the kinodynamic solver (host clock, then
-   torch.profiler).
+   B=64 for the srbm_lcp and the kinodynamic solver, and at B=32 for the
+   dense kinodynamic_voltage solver (host clock, then torch.profiler);
+10. the dense KKT path: ``LandingSolver("kinodynamic_voltage")`` at N=21 with
+   its default settings, ``solve_batch`` on the first 32 drops of phase 6,
+   with peak memory, feasibility and the largest motor voltage read back
+   from the voltage rows; then ``structured=False`` kinodynamic on 8 of
+   them against phase 6's structured solutions;
+11. ``EEParamSolver`` (f32, default settings), ``solve_batch`` on 32 drops of
+   the eeParam benchmark's sampler (tools/eeparam_bench.py:68-80);
+12. the structured backends: srbm_lcp ``solve_batch`` on 16 bench-sampler
+   scenarios under kkt_backend "scan", "cr" and "cri";
+13. the cascade (srbm_lcp -> kinodynamic) on the first 32 drops of phase 6,
+   beside phase 6's cold solves of them, and a ``Replanner`` that plans 8
+   scenarios and replans each once from a nudged measured state.
+
+Phases 10-13 run side by side, one spawned process each; their wall times
+include one another's share of the card and of the host's cores.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the ``{"ok": true, "device": ...}`` line.
@@ -49,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -62,6 +78,15 @@ H100_F32_FLOPS = 67e12
 
 N_SCENARIOS = 64  # the srbm_lcp path: one pool
 N_KINO = 128  # the kinodynamic path's batch
+N_DENSE = 32  # phase 10: kinodynamic_voltage batch (the first drops of phase 6)
+N_DENSE_CMP = 8  # phase 10: the dense kinodynamic batch held against phase 6
+N_EEPARAM = 32  # phase 11
+N_BACKENDS = 16  # phase 12
+N_CASCADE = 32  # phase 13: cascade batch (the first drops of phase 6)
+N_REPLAN = 8  # phase 13: replanner batch
+# phases 12 and 13 give the srbm_lcp solves the bench path's first-attempt
+# deadline (StreamingSolver attempt_iters (100, 150)) as their budget
+BENCH_FIRST_DEADLINE = 100
 # a path's block-inverse calls come six per IP iteration (one per
 # cyclic-reduction level of a 21-block horizon): every 30th is the largest
 # level of every fifth iteration, every 60th of every tenth
@@ -395,6 +420,271 @@ def profile_iteration(torch, solver, q, qd, label, card, iters=3):
             f"{e.key[:80]}")
 
 
+def eeparam_drops(seed: int, n: int):
+    """The drop sampler of tools/eeparam_bench.py:68-80 (numpy): height
+    U(0.45, 0.65), vertical velocity -U(0.5, 1.5), pitch U(-0.2, 0.2).
+    Returns (r_init, rdot_init, theta_init), each (n, 3)."""
+    r = np.random.default_rng(seed)
+    h = r.uniform(0.45, 0.65, n)
+    vz = -r.uniform(0.5, 1.5, n)
+    pitch = r.uniform(-0.2, 0.2, n)
+    zero = np.zeros(n)
+    return (np.stack([zero, zero, h], 1), np.stack([zero, zero, vz], 1),
+            np.stack([zero, pitch, zero], 1))
+
+
+def run_timed(torch, fn):
+    """fn() with its wall time (ending in a synchronize) and the peak device
+    memory it allocated (GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def batch_summary(sol, wall):
+    """(converged mask, one-line summary) of a batch solve's outcome."""
+    conv = sol.converged.cpu().numpy()
+    its = sol.iterations.cpu().numpy()
+    n_iter = max(int(its.max()), 1)
+    return conv, (f"converged {int(conv.sum())}/{len(conv)}, iters_p50 "
+                  f"{np.percentile(its, 50):.0f}, iters_p90 {np.percentile(its, 90):.0f}, kkt_error "
+                  f"p50 {float(sol.kkt_error.median()):.3e}, batch iterations {n_iter}, wall_s "
+                  f"{wall:.2f}, {1e3 * wall / n_iter:.1f} ms per batch iteration, converged "
+                  f"solves/s {conv.sum() / wall:.3f}")
+
+
+def check_finite(torch, sol, names, label):
+    for name in names:
+        if not torch.isfinite(getattr(sol, name)).all():
+            raise AssertionError(f"{label}: non-finite values in the solution's {name}")
+
+
+def max_rel_cost_gap(cost_a, cost_b, both):
+    """Largest |cost_a - cost_b| / |cost_b| over the lanes ``both`` (numpy)."""
+    if not both.any():
+        return float("nan")
+    a, b = cost_a[both], cost_b[both]
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
+
+
+def kinodynamic_solver(dev):
+    """Phase 6's solver: the kinodynamic battery's `base` configuration
+    (tools/kino_battery.py:62-66; also tools/cascade_sweep.py:58)."""
+    import torch
+
+    from landing_controller_tpu_torch import IPConfig, LandingSolver
+
+    return LandingSolver(
+        "kinodynamic", dtype=torch.float32, guess="reference", device=dev,
+        config=IPConfig(max_iter=200, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
+                        sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
+                        kkt_backend="cri"))
+
+
+def dense_path(torch, card, kino, kino_ref, qk, qdk, dev):
+    """Phase 10: the dense KKT path at full width (kinodynamic_voltage, N=21,
+    default settings), then kinodynamic with structured=False against phase
+    6's structured solutions of the same drops (``kino_ref``: numpy
+    converged, z and cost of phase 6's lanes)."""
+    from landing_controller_tpu_torch import LandingSolver
+
+    volt = LandingSolver("kinodynamic_voltage", dtype=torch.float32, device=dev)
+    prob = volt.problem
+    sizes = (prob.n_vars, prob.n_eq, prob.n_ineq)
+    if volt.structured or sizes != (972, 264, 3540):
+        raise AssertionError(f"kinodynamic_voltage: structured={volt.structured}, sizes {sizes}")
+    q, qd = qk[:N_DENSE], qdk[:N_DENSE]
+    sol, wall, peak = run_timed(torch, lambda: volt.solve_batch(q, qd))
+    conv, line = batch_summary(sol, wall)
+    log(f"[dense] kinodynamic_voltage solve_batch B={N_DENSE} N=21 (n={sizes[0]}, {sizes[1]} "
+        f"equality rows, {sizes[2]} inequality rows), default settings, on {card}: {line}, "
+        f"peak device memory {peak:.3f} GB")
+    check_finite(torch, sol, ("z", "X", "jpos", "U", "tau", "cost", "kkt_error", "constr_viol"),
+                 "kinodynamic_voltage")
+    if conv.sum() < 8:
+        raise AssertionError(f"kinodynamic_voltage: {int(conv.sum())} of {N_DENSE} converged (< 8)")
+    check_feasible(torch, volt, sol.z[sol.converged], q[conv], qd[conv],
+                   sol.constr_viol[sol.converged], "kinodynamic_voltage")
+    # |motor voltage| read back from the voltage rows [V - v, v + V]; the
+    # kinodynamic solutions of phase 6 (same variables, no voltage rows) beside it
+    v_batt = volt.robot_params.battery_v
+
+    def max_voltage(z, qq, qqd):
+        rows = prob._voltage_rows(prob.unpack(z), volt.build_params(qq, qqd))
+        return v_batt - float(rows.min())
+
+    v_dense = max_voltage(sol.z[sol.converged], q[conv], qd[conv])
+    ck = kino_ref["converged"][:N_DENSE]
+    v_kino = max_voltage(torch.as_tensor(kino_ref["z"][:N_DENSE][ck], device=dev), q[ck], qd[ck])
+    log(f"[dense] largest |motor voltage| on the converged solutions {v_dense:.4f} V (battery_v "
+        f"{v_batt} V); phase 6's kinodynamic solutions of the same drops, without the rows: "
+        f"{v_kino:.4f} V")
+    if v_dense > v_batt + 1e-2:
+        raise AssertionError(f"kinodynamic_voltage: a converged solution draws {v_dense:.3f} V")
+
+    dense_kino = LandingSolver("kinodynamic", dtype=torch.float32, guess=kino.guess,
+                               config=kino.config, structured=False, device=dev)
+    q8, qd8 = qk[:N_DENSE_CMP], qdk[:N_DENSE_CMP]
+    sol_d, wall, peak = run_timed(torch, lambda: dense_kino.solve_batch(q8, qd8))
+    conv_d, line = batch_summary(sol_d, wall)
+    check_finite(torch, sol_d, ("z", "cost", "kkt_error", "constr_viol"), "kinodynamic dense")
+    conv_c = kino_ref["converged"][:N_DENSE_CMP]
+    both = conv_d & conv_c
+    log(f"[dense] kinodynamic structured=False, phase 6's settings, B={N_DENSE_CMP}: {line}, peak "
+        f"device memory {peak:.3f} GB; converged dense {int(conv_d.sum())}, structured cri "
+        f"(phase 6, same drops) {int(conv_c.sum())}, both {int(both.sum())}; largest relative "
+        f"cost difference on those {max_rel_cost_gap(sol_d.cost.cpu().numpy(), kino_ref["cost"][:N_DENSE_CMP], both):.3e}")
+
+
+def eeparam_phase(torch, card, dev):
+    """Phase 11: EEParamSolver (f32, default settings) on the drops of the
+    eeParam benchmark's sampler."""
+    from landing_controller_tpu_torch import EEParamSolver
+
+    ee = EEParamSolver(dtype=torch.float32, device=dev)
+    prob = ee.problem
+    r0, rd0, th0 = eeparam_drops(0, N_EEPARAM)
+    theta = ee.build_params(r_init=r0, rdot_init=rd0, theta_init=th0)
+    sol, wall, peak = run_timed(torch, lambda: ee.solve_batch(theta))
+    conv, line = batch_summary(sol, wall)
+    log(f"[eeparam] EEParamSolver solve_batch B={N_EEPARAM} (n={prob.n_vars}, {prob.n_eq} equality "
+        f"rows, {prob.n_ineq} inequality rows), default settings, on {card}: {line}, peak device "
+        f"memory {peak:.3f} GB")
+    check_finite(torch, sol, ("z", "cost", "kkt_error", "constr_viol"), "eeparam")
+    if conv.sum() < 16:
+        raise AssertionError(f"eeparam: {int(conv.sum())} of {N_EEPARAM} converged (< 16)")
+    E, g = prob.eq(sol.z, theta), prob.ineq(sol.z, theta)
+    viol = torch.maximum(E.abs().amax(-1), torch.clamp(-g, min=0).amax(-1))[sol.converged]
+    scaled = sol.constr_viol[sol.converged]
+    log(f"[check] eeparam: {int(conv.sum())} converged solutions, max violation scaled "
+        f"{float(scaled.max()):.3e} (<= 1e-3), unscaled {float(viol.max()):.3e} (<= 1e-2)")
+    if float(scaled.max()) > 1e-3 or float(viol.max()) > 1e-2:
+        raise AssertionError("eeparam: a converged solution violates its constraints")
+
+
+def backends_phase(torch, card, srbm, launches, dev):
+    """Phase 12: srbm_lcp solve_batch under the three structured backends,
+    with the bench path's settings and its first-attempt deadline."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+
+    q, qd = bench_sampler(5)(N_BACKENDS)
+    sols = {}
+    for backend in ("scan", "cr", "cri"):
+        solver = LandingSolver(
+            "srbm_lcp", dtype=torch.float32, guess=srbm.guess, theta_overrides=srbm.theta_overrides,
+            config=dataclasses.replace(srbm.config, kkt_backend=backend,
+                                       max_iter=BENCH_FIRST_DEADLINE), device=dev)
+        qd_inverse.launches = 0
+        sol, wall, _ = run_timed(torch, lambda: solver.solve_batch(q, qd))
+        n_launch = qd_inverse.launches
+        conv, line = batch_summary(sol, wall)
+        log(f"[backends] srbm_lcp kkt_backend={backend} B={N_BACKENDS} max_iter "
+            f"{BENCH_FIRST_DEADLINE} on {card}: {line}, qd_inverse launches {n_launch}")
+        check_finite(torch, sol, ("z", "cost", "kkt_error", "constr_viol"), f"backend {backend}")
+        if (backend == "cri") != (n_launch > 0):
+            raise AssertionError(f"backend {backend}: {n_launch} qd_inverse launches")
+        sols[backend] = (sol, conv)
+    launches["srbm_lcp_cri_backend"] = n_launch
+    all3 = sols["scan"][1] & sols["cr"][1] & sols["cri"][1]
+    cost = {k: sol.cost.cpu().numpy() for k, (sol, _) in sols.items()}
+    log(f"[backends] converged by all three {int(all3.sum())}; largest relative cost difference "
+        f"against cri there: scan {max_rel_cost_gap(cost['scan'], cost['cri'], all3):.3e}, "
+        f"cr {max_rel_cost_gap(cost['cr'], cost['cri'], all3):.3e}")
+    n_cri = int(sols["cri"][1].sum())
+    if 2 * int(sols["cr"][1].sum()) < n_cri:
+        raise AssertionError(f"backend cr converges under half of cri's {n_cri}")
+    # the sequential sweep in f32 stalls above this tolerance in the JAX
+    # package as in the port (ROADMAP §3): held to its KKT level instead
+    kkt_scan = float(sols["scan"][0].kkt_error.median())
+    if not kkt_scan <= 1e-2:
+        raise AssertionError(f"backend scan: median kkt_error {kkt_scan:.3e} > 1e-2")
+
+
+def cascade_phase(torch, card, kino, kino_ref, srbm, qk, qdk, launches, dev):
+    """Phase 13: the srbm_lcp -> kinodynamic cascade with phase 6's settings
+    (those of tools/cascade_sweep.py:58) on the first drops of phase 6, and
+    the receding-horizon replanner on the bench path's srbm_lcp settings."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.warmstart.cascade import make_cascade
+    from landing_controller_tpu_torch.warmstart.replan import Replanner
+
+    stage1 = LandingSolver("srbm_lcp", dtype=torch.float32, config=kino.config, device=dev)
+    cascade = make_cascade(stage1, kino)
+    z6 = np.zeros((1, 6))
+    if not torch.equal(cascade.stage1.build_params(z6, z6).dt, kino.build_params(z6, z6).dt):
+        raise AssertionError("cascade: stage 1 is not on the kinodynamic dt schedule")
+    q, qd = qk[:N_CASCADE], qdk[:N_CASCADE]
+    qd_inverse.launches = 0
+    (sol2, sol1), wall, peak = run_timed(torch, lambda: cascade(q, qd))
+    launches["cascade"] = qd_inverse.launches
+    conv1, line1 = batch_summary(sol1, wall)
+    conv2, line2 = batch_summary(sol2, wall)
+    cold = kino_ref["converged"][:N_CASCADE]
+    log(f"[cascade] srbm_lcp -> kinodynamic (x_grf seed), B={N_CASCADE} N=21, on {card}: wall_s "
+        f"{wall:.2f} for both stages, peak device memory {peak:.3f} GB, qd_inverse launches "
+        f"{launches['cascade']}; stage 1: {line1.split(', wall_s')[0]}; stage 2: "
+        f"{line2.split(', wall_s')[0]}; cold kinodynamic on the same drops (phase 6): converged "
+        f"{int(cold.sum())}/{N_CASCADE}, both cascade and cold {int((conv2 & cold).sum())}")
+    check_finite(torch, sol2, ("z", "X", "jpos", "U", "tau", "cost"), "cascade stage 2")
+    if launches["cascade"] <= 0:
+        raise AssertionError("the cascade did not go through the qd_inverse kernel")
+    if conv2.sum() < 8:
+        raise AssertionError(f"cascade: stage 2 converged {int(conv2.sum())} of {N_CASCADE} (< 8)")
+    check_feasible(torch, kino, sol2.z[sol2.converged], q[conv2], qd[conv2],
+                   sol2.constr_viol[sol2.converged], "cascade stage 2")
+
+    rp = Replanner("srbm_lcp", dtype=torch.float32, guess=srbm.guess,
+                   theta_overrides=srbm.theta_overrides,
+                   plan_config=dataclasses.replace(srbm.config, max_iter=BENCH_FIRST_DEADLINE),
+                   device=dev)
+    qr, qdr = bench_sampler(7)(N_REPLAN)
+    qd_inverse.launches = 0
+    plan, wall_p, _ = run_timed(torch, lambda: rp.plan(qr, qdr))
+    re, wall_r, _ = run_timed(torch, lambda: rp.replan(Replanner.carry(plan), qr + 1e-3, qdr + 1e-3))
+    launches["replan"] = qd_inverse.launches
+    cap = rp.solver_warm.config.max_iter
+    conv_p, line_p = batch_summary(plan, wall_p)
+    conv_r, line_r = batch_summary(re, wall_r)
+    its_r = re.iterations.cpu().numpy()
+    log(f"[replan] srbm_lcp B={N_REPLAN} on {card}: plan (max_iter {BENCH_FIRST_DEADLINE}) "
+        f"{line_p}; replan from the measured state nudged by 1e-3 (iter_cap {cap}): {line_r}, "
+        f"iterations {its_r.tolist()}; qd_inverse launches {launches['replan']}")
+    check_finite(torch, re, ("z", "cost", "s", "lam", "y"), "replan")
+    if int(its_r.max()) > cap:
+        raise AssertionError(f"replan: {int(its_r.max())} iterations over iter_cap {cap}")
+    if launches["replan"] <= 0:
+        raise AssertionError("the replanner did not go through the qd_inverse kernel")
+
+
+SIDE_PHASES = ("dense", "eeparam", "backends", "cascade")
+
+
+def side_phase(name, card, qk, qdk, kino_ref):
+    """One of phases 10-13 in a process of its own; returns its kernel
+    launch counts {path: launches}."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    t0 = time.time()
+    if name == "dense":
+        dense_path(torch, card, kinodynamic_solver("cuda"), kino_ref, qk, qdk, "cuda")
+    elif name == "eeparam":
+        eeparam_phase(torch, card, "cuda")
+    elif name == "backends":
+        backends_phase(torch, card, srbm_lcp_path()[0], launches, "cuda")
+    else:
+        cascade_phase(torch, card, kinodynamic_solver("cuda"), kino_ref, srbm_lcp_path()[0], qk,
+                      qdk, launches, "cuda")
+    log(f"[{name}] phase done in {time.time() - t0:.1f} s")
+    return launches
+
+
 def srbm_lcp_path():
     """The srbm_lcp solver of the repo's benchmark settings on the card, and
     a function seed -> its streaming solver (B=64, 25-iteration segments,
@@ -622,11 +912,7 @@ def main() -> int:
         raise AssertionError("the card's solve disagrees with the CPU's")
 
     # ---- 6. the kinodynamic path at full width: N=21, 84-wide blocks
-    kino = LandingSolver(
-        "kinodynamic", dtype=torch.float32, guess="reference", device="cuda",
-        config=IPConfig(max_iter=200, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
-                        sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
-                        kkt_backend="cri"))
+    kino = kinodynamic_solver("cuda")
     qk, qdk = sample_drop_scenarios(11, N_KINO)
     cap_kino = {}
     restore, sizes = capture_block_inverse_calls(structured, cap_kino, CAPTURE_EVERY_KINO)
@@ -761,13 +1047,35 @@ def main() -> int:
         check_real_blocks(torch, f"chol_inverse {label}", chol_inverse, chol_inverse_ref,
                           {call: P for (lab, call), P in spd.items() if lab == label})
 
-    # ---- 9. where one batch-iteration's time goes (B=64)
+    # ---- 9. where one batch-iteration's time goes (B=64; the dense path B=32)
     profile_iteration(torch, solver, *bench_sampler(2)(64), "srbm_lcp", card)
     profile_iteration(torch, kino, *sample_drop_scenarios(12, 64), "kinodynamic", card)
+    volt = LandingSolver("kinodynamic_voltage", dtype=torch.float32, device="cuda")
+    profile_iteration(torch, volt, *sample_drop_scenarios(12, 32), "kinodynamic_voltage (dense)",
+                      card)
+
+    # ---- 10-13. the dense path, EEParamSolver, the backends, cascade and
+    # replan: four processes side by side on the card.  Each path is
+    # host-bound (the device idles 75-95% of an iteration, phase 9), so
+    # together they take about as long as the longest; their wall times
+    # include the others' share of the card and the host's cores
+    log(f"[phases 1-9] {time.time() - t_start:.1f} s")
+    kino_ref = {"converged": sol.converged.cpu().numpy(), "z": sol.z.cpu().numpy(),
+                "cost": sol.cost.cpu().numpy()}
+    pool = multiprocessing.get_context("spawn").Pool(len(SIDE_PHASES))
+    try:
+        jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref))
+                for name in SIDE_PHASES]
+        for job in jobs:
+            launches.update(job.get())
+    finally:
+        pool.terminate()
+        pool.join()
 
     log(f"[done] {time.time() - t_start:.1f} s in all")
     # ---- the kernels line, the card line, the result line
-    solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc")
+    solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
+                    "srbm_lcp_cri_backend", "cascade", "replan")
     kernels = [{
         "name": "qd_inverse",
         "route": "cuda",

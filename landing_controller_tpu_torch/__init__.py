@@ -1,15 +1,20 @@
 """PyTorch/CUDA port of the landing_controller_tpu package.
 
 The landing trajectory optimizer, batch-first in PyTorch: the kinodynamic
-(production) problem and the srbm_lcp, sliding, ccc and contact-scheduled
-variants on the stage-structured KKT path, batch and streaming solves, with
-the block inverses of the factorization as hand-written CUDA kernels for
-Hopper (``csrc/qd_inverse.cu``, ``csrc/chol_inverse.cu``).  Imports no JAX;
-the JAX package beside it is the reference the tests hold it against.
+(production) problem, its motor-voltage variant and the srbm_lcp, sliding,
+ccc and contact-scheduled variants, on the stage-structured KKT path
+(backends "cri", "cr", "scan") or the dense one; the free-contact-timing
+eeParam solver; batch and streaming solves, the SRBM -> kinodynamic cascade
+and the receding-horizon replanner (``warmstart.cascade``,
+``warmstart.replan``).  The block inverses of the "cri" factorization are
+hand-written CUDA kernels for Hopper (``csrc/qd_inverse.cu``,
+``csrc/chol_inverse.cu``).  Imports no JAX; the JAX package beside it is the
+reference the tests hold it against.
 """
 
-from .api import LandingSolution, LandingSolver
+from .api import EEParamSolution, EEParamSolver, LandingSolution, LandingSolver
 from .parallel.stream import StreamingSolver
 from .solver.ip import IPConfig
 
-__all__ = ["IPConfig", "LandingSolution", "LandingSolver", "StreamingSolver"]
+__all__ = ["EEParamSolution", "EEParamSolver", "IPConfig", "LandingSolution", "LandingSolver",
+           "StreamingSolver"]

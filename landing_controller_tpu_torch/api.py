@@ -7,8 +7,12 @@ Example::
     sols = solver.solve_batch(q_inits, qd_inits)    # (B, 6) batch
 
 ``LandingSolver(kind)`` solves ``kinodynamic`` (the production problem, the
-default), ``srbm_lcp``, ``sliding``, ``ccc`` and ``contact_scheduled`` on the
-stage-structured ``cri`` path.
+default), ``kinodynamic_voltage``, ``srbm_lcp``, ``sliding``, ``ccc`` and
+``contact_scheduled``: on the stage-structured path (``kkt_backend`` "cri",
+the port's default, "cr" or "scan"), or with ``structured=False`` on the dense
+KKT path, which ``kinodynamic_voltage`` always takes.  :class:`EEParamSolver`
+solves the free-contact-timing NLP of :mod:`.problems.eeparam` on the dense
+path.
 
 The solver runs on the card unless constructed with ``device="cpu"``.
 """
@@ -23,11 +27,13 @@ import torch
 from ._tree import tree_map
 from .models import get_robot_params
 from .dynamics.legs import leg_torques
+from .problems.eeparam import default_eeparam_params, eeparam_problem
 from .problems.landing import (
     LandingProblem,
     ccc_problem,
     contact_scheduled_problem,
     kinodynamic_problem,
+    kinodynamic_voltage_problem,
     sliding_problem,
     srbm_lcp_problem,
 )
@@ -71,13 +77,15 @@ class LandingSolution:
 
 _PROBLEMS = {
     "kinodynamic": (kinodynamic_problem, kinodynamic_params),
+    "kinodynamic_voltage": (kinodynamic_voltage_problem, kinodynamic_params),
     "srbm_lcp": (srbm_lcp_problem, srbm_lcp_params),
     "ccc": (ccc_problem, ccc_params),
     "contact_scheduled": (contact_scheduled_problem, contact_scheduled_params),
     "sliding": (sliding_problem, srbm_lcp_params),
 }
-# voltage rows couple adjacent knots' jpos: dense KKT path only, not ported
-_NOT_PORTED = ("kinodynamic_voltage",)
+# the JAX structured step's forcing variants select TPU or interpret paths,
+# which the port does not have
+_NOT_PORTED_BACKENDS = ("cri_pallas", "cri_ref", "cri_pallas_interpret")
 
 
 def resolve_device(device) -> torch.device:
@@ -105,12 +113,8 @@ class LandingSolver:
         device="cuda",
         nn_path: str | None = None,
     ):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"problem kind '{kind}' is not ported to PyTorch yet")
         if kind not in _PROBLEMS:
             raise KeyError(f"unknown problem kind '{kind}'; available: {sorted(_PROBLEMS)}")
-        if not structured:
-            raise NotImplementedError("the dense KKT path is not ported to PyTorch yet")
         # retry_guess: the alternate cold-guess family chain that the
         # streaming solver's per-lane variant selects (variant k uses chain[k-1])
         if isinstance(retry_guess, str):
@@ -131,11 +135,16 @@ class LandingSolver:
         self.retry_guess = retry_chain or None
         self.dtype = dtype
         self.theta_overrides = dict(theta_overrides or {})
+        # voltage rows couple adjacent knots' jpos: dense path only
+        self.structured = structured and kind != "kinodynamic_voltage"
         problem_fn, self._params_fn = _PROBLEMS[kind]
         self.robot_params = get_robot_params(robot)
         self.problem: LandingProblem = problem_fn(self.robot_params, n_knots=n_knots)
         f32 = dtype == torch.float32
         if config is None:
+            # the JAX package's defaults, except the structured backend: the
+            # port's default is "cri", the path of the hand-written kernel
+            # (the JAX default config leaves IPConfig's "scan")
             config = IPConfig(
                 max_iter=250,
                 hessian_mode="hybrid",
@@ -143,13 +152,14 @@ class LandingSolver:
                 sigma_max=1e5 if f32 else 1e8,
                 tol=2e-4 if f32 else 1e-4,
                 relax_scale=1.0,
-                delta_c=1e-6,
-                refine_steps=3 if f32 else 1,
+                delta_c=1e-6 if (self.structured or kind == "contact_scheduled") else 1e-8,
+                refine_steps=(3 if self.structured else 2) if f32 else 1,
                 kkt_backend="cri",
             )
-        if config.kkt_backend != "cri":
+        if self.structured and config.kkt_backend in _NOT_PORTED_BACKENDS:
             raise NotImplementedError(
-                f"kkt_backend={config.kkt_backend!r}: the PyTorch port has 'cri' only"
+                f"kkt_backend={config.kkt_backend!r} forces a TPU or interpret path of the JAX "
+                "package; the port has 'cri', 'cr' and 'scan'"
             )
         self.config = config
         self._z_scale = torch.as_tensor(landing_z_scale(self.problem), dtype=dtype,
@@ -210,6 +220,12 @@ class LandingSolver:
     def scaled_problem(self, theta, z0) -> ScaledNLP:
         return scale_problem(self.problem, theta, z0, z_scale=self._z_scale)
 
+    def _newton_step(self, theta, snlp):
+        """The structured step, or None for the solver's dense default."""
+        if not self.structured:
+            return None
+        return make_structured_newton_step(self.problem, theta, self.config, snlp)
+
     # ------------------------------------------------------------ solves
     def _solve_impl(self, q_init, qd_init, z0=None, warm=None) -> LandingSolution:
         """Solve B scenarios.  z0: optional primal warm start (B, n);
@@ -218,7 +234,7 @@ class LandingSolver:
         theta = self.build_params(q_init, qd_init)
         z0 = self._cold_guess(theta) if z0 is None else self._as_batch(z0)
         snlp = self.scaled_problem(theta, z0)
-        step_fn = make_structured_newton_step(prob, theta, self.config, snlp)
+        step_fn = self._newton_step(theta, snlp)
         s0 = lam0 = y0 = None
         if warm is not None:
             s_u, lam_u, y_u = (self._as_batch(w) for w in warm)
@@ -261,7 +277,7 @@ class LandingSolver:
             z0 = self._cold_guess(theta, variant)
             snlp = self.scaled_problem(theta, z0)
         zs0 = state.z if z0 is None else snlp.to_scaled(z0)
-        step_fn = make_structured_newton_step(self.problem, snlp.theta, self.config, snlp)
+        step_fn = self._newton_step(snlp.theta, snlp)
         res, new_state = solve(
             snlp.cost, snlp.eq, snlp.ineq, zs0, self.config,
             relax_mask=self._relax_mask, newton_step_fn=step_fn,
@@ -294,6 +310,7 @@ class LandingSolver:
             config=cfg,
             dtype=self.dtype,
             theta_overrides=self.theta_overrides,
+            structured=self.structured,
             guess=self.guess,
             retry_guess=self.retry_guess,
             device=self.device,
@@ -313,3 +330,96 @@ class LandingSolver:
     def solve_batch(self, q_inits, qd_inits) -> LandingSolution:
         """Solve a (B, 6) batch of scenarios (leading axis = scenario)."""
         return self._solve_impl(q_inits, qd_inits)
+
+
+@dataclasses.dataclass(frozen=True)
+class EEParamSolution:
+    v: object  # EEParamVars (base polynomials, durations, force/posn splines)
+    z: torch.Tensor
+    converged: torch.Tensor
+    iterations: torch.Tensor
+    kkt_error: torch.Tensor
+    constr_viol: torch.Tensor
+    cost: torch.Tensor
+
+
+class EEParamSolver:
+    """Solver for the phase-based free-contact-timing NLP
+    (problems/eeparam.py; the reference's quadruped_SRBM_eeParam.m:26-409).
+
+    The decision vector is spline coefficients and phase durations rather
+    than knot states, so this family lives outside :class:`LandingSolver`
+    with the same ergonomics, on the dense KKT path::
+
+        s = EEParamSolver()                      # f32, on the GPU
+        sol = s.solve(s.build_params())          # the default drop
+        sols = s.solve_batch(thetas)             # EEParamParams of B lanes
+    """
+
+    def __init__(self, config=None, ip_config: IPConfig | None = None, dtype=torch.float32,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.problem = eeparam_problem(config)
+        self.dtype = dtype
+        f32 = dtype == torch.float32
+        if ip_config is None:
+            # the JAX package's settings: no complementarity rows, GN curvature,
+            # a 2-candidate ladder, 7 refinement sweeps in f32 (its batched f32
+            # path plateaus at kkt ~3e-3 on some lanes with 3-5)
+            ip_config = IPConfig(
+                max_iter=200,
+                hessian_mode="gn",
+                relax_scale=0.0,
+                delta_c=1e-6,
+                mu_min=1e-5 if f32 else 1e-6,
+                tol=2e-4 if f32 else 1e-4,
+                sigma_max=1e5 if f32 else 1e8,
+                ladder_scales=(0.0, 1.0),
+                refine_steps=7 if f32 else 1,
+            )
+        self.config = ip_config
+        self._relax_mask = torch.as_tensor(self.problem.relax_mask(), dtype=dtype,
+                                           device=self.device)
+
+    def build_params(self, r_init=None, rdot_init=None, theta_init=None, thetadot_init=None):
+        """EEParamParams for drop scenarios (defaults: the reference's values,
+        quadruped_SRBM_eeParam.m:412-447).  Each given value is (3,) or
+        (B, 3); the result has a leading batch of 1 or B."""
+        over = {k: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+                for k, v in {"r_init": r_init, "rdot_init": rdot_init, "theta_init": theta_init,
+                             "thetadot_init": thetadot_init}.items() if v is not None}
+        B = max([1] + [v.shape[0] for v in over.values() if v.dim() == 2])
+        theta = default_eeparam_params(self.dtype, self.device, batch=B)
+        return dataclasses.replace(theta, **{k: v.expand(B, 3).clone() for k, v in over.items()})
+
+    def _solve_impl(self, theta) -> EEParamSolution:
+        prob = self.problem
+        theta = tree_map(lambda t: t.to(dtype=self.dtype, device=self.device), theta)
+        z0 = prob.initial_guess(theta)
+        snlp = scale_problem(prob, theta, z0)
+        res = solve(snlp.cost, snlp.eq, snlp.ineq, snlp.to_scaled(z0), self.config,
+                    relax_mask=self._relax_mask)
+        z = snlp.from_scaled(res.z)
+        return EEParamSolution(v=prob.unpack(z), z=z, converged=res.converged,
+                               iterations=res.iterations, kkt_error=res.kkt_error,
+                               constr_viol=res.constr_viol, cost=res.cost)
+
+    def solve(self, theta) -> EEParamSolution:
+        """Solve one scenario: EEParamParams of one lane (as build_params
+        gives it); the solution has no batch dimension."""
+        if theta.r_init.dim() == 1:
+            theta = tree_map(lambda t: t[None], theta)
+        if theta.batch != 1:
+            raise ValueError(f"solve takes one scenario, got {theta.batch}; use solve_batch")
+        self.problem.check_params(theta)
+        return tree_map(lambda t: t[0], self._solve_impl(theta))
+
+    def solve_batch(self, thetas) -> EEParamSolution:
+        """Solve B scenarios (EEParamParams with a leading batch axis on every
+        field); the half-static horizon is checked on every lane, since a
+        lane whose theta.horizon differs from the static config would be
+        solved on the wrong time grid."""
+        self.problem.check_params(thetas)
+        return self._solve_impl(thetas)

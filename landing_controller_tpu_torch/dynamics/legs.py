@@ -1,4 +1,4 @@
-"""Closed-form Mini-Cheetah leg kinematics: FK, analytic Jacobian, torques.
+"""Closed-form Mini-Cheetah leg kinematics: FK, analytic Jacobian, torques, IK.
 
 Vectorized over the 4 legs and free of control flow; every function takes
 any leading dimensions (jpos (..., 12), q_base (..., 6), rpy (..., 3)) and
@@ -12,6 +12,10 @@ is written functionally, so ``torch.func`` traces it per knot.
   y-offset, exactly as get_foot_jacobians_mc.m:1-27.  The reference's FK
   chain does NOT include that offset; both behaviours are reproduced, since
   the NLP uses both with a +-1 cm consistency band.
+- :func:`inverse_kinematics` is the closed-form atan2 IK
+  (quadInverseKinematics.m:1-44, legacy ZYX base rotation, or the production
+  XYZ convention), :func:`inverse_kinematics_newton` its damped-Newton polish
+  on the FK residual (misc/inverse_kinematics.m:1-19).
 
 Products are elementwise sums in the working precision (no TF32).
 """
@@ -21,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .rotations import rpy_to_rot_xyz
+from .rotations import rpy_to_rot_xyz, rpy_to_rot_zyx
 
 # Per-leg ab/ad y sign [FR, FL, HR, HL] (get_foot_jacobians_mc.m:3).
 SIDE_SIGN = np.array([-1.0, 1.0, -1.0, 1.0])
@@ -123,3 +127,73 @@ def leg_torques(params, jpos, rpy, f_grf):
     f_body = -(f[..., None, :] * R_w2b[..., None, :, :]).sum(-1)  # -R_w2b @ f_leg
     tau = (J * f_body[..., :, None]).sum(-2)  # J' @ f_body
     return tau.reshape(f_grf.shape)
+
+
+def _base_rotation(fb_state, convention: str):
+    if convention == "zyx":
+        return rpy_to_rot_zyx(fb_state[..., 3:6])
+    if convention == "xyz":
+        return rpy_to_rot_xyz(fb_state[..., 3:6])
+    raise ValueError(convention)
+
+
+def _hip_frame_targets(params, fb_state, p_feet, R_b2w):
+    """R_w2b (p - base) - hip per leg, (..., 4, 3)."""
+    hip_rel = torch.as_tensor(SIDE_SIGN_XYZ * np.asarray(params.abad_location),
+                              dtype=p_feet.dtype, device=p_feet.device)
+    p = p_feet.reshape(p_feet.shape[:-1] + (4, 3)) - fb_state[..., None, :3]
+    # (p - base) @ R_b2w per leg, written out as a broadcast sum
+    return (p[..., :, None] * R_b2w[..., None, :, :]).sum(-2) - hip_rel
+
+
+def inverse_kinematics(params, fb_state, p_feet, convention: str = "zyx"):
+    """Closed-form IK: world foot positions -> 12 joint angles
+    (quadInverseKinematics.m:1-44).  ``fb_state`` (..., 6) base pose,
+    ``p_feet`` (..., 12) world foot positions -> (..., 12).  The reference
+    uses the legacy ZYX base rotation; ``convention="xyz"`` gives the
+    production convention of :func:`foot_positions_world`."""
+    l1, l2, l3 = params.l1, params.l2, params.l3
+    p_rel = _hip_frame_targets(params, fb_state, p_feet, _base_rotation(fb_state, convention))
+    l1s = torch.as_tensor(SIDE_SIGN_XYZ[:, 1], dtype=p_feet.dtype, device=p_feet.device) * l1
+    px, py, pz = p_rel[..., 0], p_rel[..., 1], p_rel[..., 2]
+    th1 = torch.atan2(pz, py) + torch.atan2(
+        torch.sqrt(torch.clamp(py**2 + pz**2 - l1s**2, min=0.0)), l1s.expand_as(py))
+    tmp = py * torch.sin(th1) - pz * torch.cos(th1)
+    A = -2.0 * tmp * l2
+    B = -2.0 * px * l2
+    C = l3**2 - tmp**2 - px**2 - l2**2
+    disc = torch.clamp(A**2 + B**2 - C**2, min=0.0)
+    th2 = torch.atan2(B, A) + torch.atan2(torch.sqrt(disc), C)
+    th3 = torch.atan2(px - l2 * torch.sin(th2), tmp - l2 * torch.cos(th2)) - th2
+    return torch.stack([th1, th2, th3], -1).reshape(p_feet.shape)
+
+
+def inverse_kinematics_newton(params, fb_state, p_feet, jpos_guess, convention: str = "xyz",
+                              iters: int = 8, tol: float = 1e-6):
+    """Numeric IK refinement, the ``fsolve``-on-FK-residual fallback
+    (misc/inverse_kinematics.m:1-19): ``iters`` damped per-leg Newton steps
+    on the body-frame FK residual from ``jpos_guess``.  Where the refined
+    answer does not beat the guess's residual (an out-of-workspace target),
+    the guess is returned, per scenario and branch-free."""
+    dtype = p_feet.dtype
+    target = _hip_frame_targets(params, fb_state, p_feet, _base_rotation(fb_state, convention))
+    eye = 1e-9 * torch.eye(3, dtype=dtype, device=p_feet.device)
+
+    def residual(jp):
+        return foot_positions_hip(params, jp) - target  # (..., 4, 3)
+
+    jp0 = jpos_guess.reshape(p_feet.shape).to(dtype)
+    jp = jp0
+    for _ in range(iters):
+        r = residual(jp)
+        J = leg_jacobians(params, jp)  # (..., 4, 3, 3) d p_hip / d jpos per leg
+        # damped per-leg 3x3 solve (Levenberg): J'J + eps I guards the
+        # knee-singular configurations
+        JtJ = J.transpose(-1, -2) @ J + eye
+        rhs = (J * r[..., :, None]).sum(-2)
+        djp = torch.linalg.solve(JtJ, rhs[..., None])[..., 0]
+        jp = jp - djp.reshape(jp.shape)
+    err_ref = residual(jp).abs().flatten(-2).amax(-1)
+    err_0 = residual(jp0).abs().flatten(-2).amax(-1)
+    better = torch.isfinite(err_ref) & (err_ref <= torch.clamp(err_0, min=tol))
+    return torch.where(better[..., None], jp, jp0)

@@ -6,6 +6,8 @@
   (dynamics-utilities/rpyToRotMat.m:1-2), used by the SRBM-LCP NLP.
 - ``binv``: world angular velocity -> Euler rates; singular at pitch = +-pi/2
   (dynamics-utilities/Binv.m:1-16).
+- ``bmat_f`` / ``bmat_f_dot``: Euler rates -> world angular velocity and its
+  time derivative (BmatF.m:1-12, BmatF_dot.m:1-16), used by the eeParam NLP.
 
 Every function takes ``rpy`` with any leading dimensions ``(..., 3)`` and
 returns ``(..., 3, 3)``.  Matrices are composed elementwise, with no matmul.
@@ -58,3 +60,31 @@ def binv(rpy):
     z = torch.zeros_like(psi)
     o = torch.ones_like(psi)
     return _mat([[cp / ct, sp / ct, z], [-sp, cp, z], [cp * tt, sp * tt, o]])
+
+
+def bmat_f(rpy):
+    """Euler rates -> world angular velocity (BmatF.m:1-12):
+    ``omega_world = bmat_f(rpy) @ rpy_dot``."""
+    theta, psi = rpy[..., 1], rpy[..., 2]
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    ct, st = torch.cos(theta), torch.sin(theta)
+    z = torch.zeros_like(psi)
+    o = torch.ones_like(psi)
+    return _mat([[cp * ct, -sp, z], [ct * sp, cp, z], [-st, z, o]])
+
+
+def bmat_f_dot(rpy, rpy_dot):
+    """Time derivative of ``bmat_f`` (BmatF_dot.m:1-16):
+    ``omega_dot = bmat_f_dot(rpy, rpy_dot) @ rpy_dot + bmat_f(rpy) @ rpy_ddot``."""
+    theta, psi = rpy[..., 1], rpy[..., 2]
+    theta_d, psi_d = rpy_dot[..., 1], rpy_dot[..., 2]
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    ct, st = torch.cos(theta), torch.sin(theta)
+    z = torch.zeros_like(psi)
+    return _mat(
+        [
+            [-ct * sp * psi_d - st * theta_d * cp, -cp * psi_d, z],
+            [ct * cp * psi_d - st * theta_d * sp, -sp * psi_d, z],
+            [-ct * theta_d, z, z],
+        ]
+    )

@@ -4,7 +4,8 @@ The port's own copy of the mc3D / mcv3D parameter sets of the reference
 registry (dynamics-utilities/get_robot_params.m:50-190).  Only the fields the
 landing problems need are kept: link geometry (with the derived leg link
 lengths of the closed-form kinematics), masses and spatial inertias (for the
-composite-inertia SRBM constants in :mod:`.model`) and the SRBM hip locations.
+composite-inertia SRBM constants in :mod:`.model`), the SRBM hip locations,
+and the gear ratios and motor constants of the voltage-limit rows.
 """
 
 from __future__ import annotations
@@ -42,6 +43,13 @@ class RobotParams:
     knee_location: np.ndarray  # (3,) hip->knee offset
     foot_location: np.ndarray  # (3,) knee->foot offset
     hip_srbm_location: np.ndarray  # (4,3) SRBM hip positions
+    abad_gear_ratio: float
+    hip_gear_ratio: float
+    knee_gear_ratio: float
+    motor_kt: float
+    motor_r: float
+    motor_tau_max: float
+    battery_v: float
     knee_link_y_offset: float = 0.004  # l_4 in the analytic Jacobian (get_foot_jacobians_mc.m:8)
 
     # Derived leg link lengths used by closed-form kinematics:
@@ -81,6 +89,13 @@ def _mc3d() -> RobotParams:
         hip_srbm_location=np.array(
             [[0.19, -0.1, 0.0], [0.19, 0.1, 0.0], [-0.19, -0.1, 0.0], [-0.19, 0.1, 0.0]]
         ),
+        abad_gear_ratio=6.0,
+        hip_gear_ratio=6.0,
+        knee_gear_ratio=9.33,
+        motor_kt=0.05,
+        motor_r=0.173,
+        motor_tau_max=3.0,
+        battery_v=24.0,
     )
 
 

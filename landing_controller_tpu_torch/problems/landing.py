@@ -5,7 +5,10 @@ the SRBM-LCP family.
   (main_scripts/landing_optimization.m:39-201): decision vars X (12xN),
   jpos (12x(N-1)), U (24x(N-1)); XYZ rotation convention; velocity-scaled
   asymmetric kinematic box; Jacobian-transpose torque limits; FK-consistency
-  band; relaxed LCP + no-slip complementarity (eps = 1e-3).
+  band; relaxed LCP + no-slip complementarity (eps = 1e-3).  Its
+  **kinodynamic_voltage** variant adds the motor back-EMF voltage rows
+  (test_finalOptimization_voltageLimits.m:178-187), which couple adjacent
+  knots' joint angles.
 - **srbm_lcp**: the IPOPT warm-start problem
   (generate_solver/generate_landingCtrller_IPOPT_warmstart.m:41-170): no
   joint variables, legacy ZYX rotation, fixed symmetric kinematic box, f_max
@@ -136,7 +139,7 @@ class LandingConfig:
     terminal_box: bool = True  # terminal state box rows
     init_foot_eq: bool = False  # c_0 == c_init equality
     lcp_rows: bool = True  # complementarity rows (off for scheduled)
-    voltage_limit: bool = False  # motor back-EMF voltage rows: not ported (raises)
+    voltage_limit: bool = False  # motor back-EMF voltage rows (dense KKT path only)
     # cost p_hip nominal offsets (quadruped_SRBM_NLP.m:78-80)
     p_hip_cost: tuple = (
         (0.19, -0.1, -0.2), (0.19, 0.1, -0.2), (-0.19, -0.1, -0.2), (-0.19, 0.1, -0.2)
@@ -184,10 +187,6 @@ class LandingProblem:
     """Transcribed landing NLP: cost / eq / ineq over flat z (B, n)."""
 
     def __init__(self, config: LandingConfig, robot_params):
-        if config.voltage_limit:
-            raise NotImplementedError(
-                "the motor-voltage rows (kinodynamic_voltage) are not ported to PyTorch yet"
-            )
         self.config = config
         self.robot_params = robot_params
         n = config.n_knots
@@ -316,7 +315,8 @@ class LandingProblem:
     def _count_ineq(self) -> int:
         n = self.config.n_knots
         per_knot = sum(sz for _, sz in self._row_groups()[0])
-        return per_knot * (n - 1) + (24 if self.config.terminal_box else 0)
+        n_volt = 24 * (n - 2) if self.config.voltage_limit else 0
+        return per_knot * (n - 1) + (24 if self.config.terminal_box else 0) + n_volt
 
     def ineq_row_labels(self):
         """Human-readable label per inequality row (diagnostics)."""
@@ -327,6 +327,9 @@ class LandingProblem:
                 labels += [f"k{k}:{name}[{i}]" for i in range(sz)]
         if self.config.terminal_box:
             labels += [f"terminal[{i}]" for i in range(24)]
+        if self.config.voltage_limit:
+            for k in range(1, self.config.n_knots - 1):
+                labels += [f"k{k}:volt[{i}]" for i in range(24)]
         return labels
 
     def relax_mask(self) -> np.ndarray:
@@ -337,7 +340,8 @@ class LandingProblem:
             [np.full(sz, 1.0 if name in marked else 0.0) for name, sz in groups]
         )
         tail = np.zeros(24 if self.config.terminal_box else 0)
-        return np.concatenate([np.tile(row, self.config.n_knots - 1), tail])
+        volt = np.zeros(24 * (self.config.n_knots - 2) if self.config.voltage_limit else 0)
+        return np.concatenate([np.tile(row, self.config.n_knots - 1), tail, volt])
 
     def knot_ineq(self, x_k, u_k, jpos_k, c_next, kp):
         """The inequality rows of one knot for this problem's kind (any
@@ -356,7 +360,27 @@ class LandingProblem:
         parts = [self.knot_ineq(v.X[:, :-1], v.U, v.jpos, c_next, kp).reshape(B, -1)]
         if self.config.terminal_box:
             parts.append(self._terminal_ineq(v.X[:, -1], theta))
+        if self.config.voltage_limit:
+            parts.append(self._voltage_rows(v, theta))
         return torch.cat(parts, -1)
+
+    def _voltage_rows(self, v, theta):
+        """Motor terminal-voltage rows |i R_m + back-EMF| <= V_batt
+        (test_finalOptimization_voltageLimits.m:178-187; back-EMF model as
+        plot_results.m:23-38): one row pair [V - v, v + V] per joint for knots
+        k = 1..N-2, with the joint velocity from the backward difference
+        (jpos_k - jpos_{k-1}) / dt(1).  The reference divides by the FIRST dt,
+        not dt_k; so does this.  (B, 24 (N-2))."""
+        rp = self.robot_params
+        X = v.X
+        gr = torch.tensor([rp.abad_gear_ratio, rp.hip_gear_ratio, rp.knee_gear_ratio] * 4,
+                          dtype=X.dtype, device=X.device)
+        tau = legs.leg_torques(rp, v.jpos[:, 1:], X[:, 1:-1, 3:6], v.U[:, 1:, 12:])
+        current = (tau / gr) / (1.5 * rp.motor_kt)
+        jvel = (v.jpos[:, 1:] - v.jpos[:, :-1]) / theta.dt[:, :1, None]
+        volt = current * rp.motor_r + jvel * gr * rp.motor_kt * 2.0
+        rows = torch.cat([rp.battery_v - volt, volt + rp.battery_v], -1)
+        return rows.reshape(X.shape[0], -1)
 
     def _terminal_ineq(self, x_n, theta):
         """Terminal state box (landing_optimization.m:94-97)."""
@@ -541,8 +565,7 @@ def kinodynamic_problem(robot_params, n_knots: int = 21) -> LandingProblem:
 def kinodynamic_voltage_problem(robot_params, n_knots: int = 21) -> LandingProblem:
     """Kinodynamic NLP + motor back-EMF voltage limit rows
     (test_finalOptimization_voltageLimits.m:178-187).  The voltage rows couple
-    adjacent knots' joint angles, so the variant runs on the dense KKT path,
-    which is not ported: constructing it raises ``NotImplementedError``."""
+    adjacent knots' joint angles, so the variant runs on the dense KKT path."""
     base = kinodynamic_problem(robot_params, n_knots=n_knots)
     return LandingProblem(dataclasses.replace(base.config, voltage_limit=True), robot_params)
 

@@ -1,11 +1,14 @@
 """Primal-dual interior-point NLP solver, batch-first (B independent lanes).
 
 Solves   min f(z)  s.t.  E(z) = 0,  g(z) >= 0   for every lane at once, via
-slacks and the log barrier, with the stage-structured Newton step of
-:mod:`.structured`, fraction-to-boundary, an optional Gondzio corrector, a
-filter line search over n_linesearch candidates evaluated together, the
-monotone or loqo barrier rules, a slack-reset rescue and a windowed stall
-detector with best-iterate restores.
+slacks and the log barrier, with fraction-to-boundary, an optional Gondzio
+corrector, a filter line search over n_linesearch candidates evaluated
+together, the monotone or loqo barrier rules, a slack-reset rescue and a
+windowed stall detector with best-iterate restores.
+
+The Newton step is pluggable: the stage-structured step of :mod:`.structured`
+(landing problems), or by default the dense inertia-corrected Schur step
+(:func:`_solve_kkt`) on dense Jacobians and Hessians taken by ``torch.func``.
 
 Every per-lane decision is branch-free: lanes that converged, failed or hit
 their iteration budget freeze (``torch.where`` on per-lane masks) while the
@@ -27,9 +30,10 @@ import dataclasses
 from typing import Callable
 
 import torch
-from torch.func import jvp, vjp
+from torch.func import grad, jvp, vjp
 
-from .._tree import tree_where
+from .._tree import tree_map, tree_where
+from ..ops.block_tridiag import chol_nan
 
 # a full (unsegmented) solve reads "any lane still running?" once per this
 # many iterations
@@ -83,7 +87,7 @@ class IPConfig:
     # the JAX package's MXU precision knob; the port's counterpart is full
     # f32 matmuls (TF32 off), which the solver API sets
     matmul_precision: str = "highest"
-    kkt_backend: str = "scan"  # the port implements "cri" only
+    kkt_backend: str = "scan"  # structured step: "scan", "cr" or "cri"
     relax_scale: float = 0.0
     alpha_for_y: str = "bound-mult"  # "bound-mult" | "primal"
     bound_relax_factor: float = 1e-6
@@ -149,6 +153,167 @@ def _kkt_error_rd(r_d, E, g, s, lam, y, mu):
     return torch.maximum(torch.maximum(err_d, err_e), torch.maximum(err_g, err_c)), r_d
 
 
+# dense derivatives take at most this many rows (lanes x tangent columns) per
+# forward-mode call; more columns are taken in chunks.  kinodynamic_voltage
+# at B=32 (31,104 rows) fits one call in about 7 GB of device memory
+_JAC_ROWS = 32768
+
+
+def _first_ok(oks):
+    """Per lane, the index of the first True of oks (B, k), else k - 1."""
+    return torch.where(oks.any(1), torch.argmax(oks.to(torch.int32), 1),
+                       torch.full_like(oks[:, 0], oks.shape[1] - 1, dtype=torch.int64))
+
+
+def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
+    """Inertia-corrected Schur-complement KKT solve of B lanes.
+
+    Solves [[H0 + dI, Je'], [Je, -delta_c I]] [dz; dy] = [rhs_z; rhs_y] per
+    lane, where d is the smallest shift of the ladder {delta_w, s delta_last}
+    (``cfg.ladder_scales``) whose shifted, Jacobi-equilibrated H0 has a
+    Cholesky factor; all candidates are factored in one batched call, and a
+    lane where none succeeds takes the emergency shift 1e3 delta_last + 1e3.
+    H0 (B, n, n), Je (B, me, n), rhs_z (B, n), rhs_y (B, me), delta_last (B,).
+
+    Returns (dz, dy, delta_used, resolve); ``resolve(rhs_z, rhs_y)`` re-solves
+    with the same factors (corrector steps)."""
+    B, n = rhs_z.shape
+    me = rhs_y.shape[-1]
+    dtype, dev = H0.dtype, H0.device
+    lanes = torch.arange(B, device=dev)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    # Jacobi equilibration D = (diag(H) + base)^(-1/2) with an absolute floor
+    # base = 1e-2 mean(diag) (zero-curvature variables keep a bounded scale
+    # and their share of the shift)
+    diag0 = torch.diagonal(H0, dim1=-2, dim2=-1)
+    base = 1e-2 * diag0.mean(-1) + 1e-12
+    dH = torch.sqrt(diag0 + base[:, None])
+    dinv = 1.0 / dH
+    Hn = H0 * dinv[:, :, None] * dinv[:, None, :]
+    deltas = torch.stack(
+        [torch.full_like(delta_last, cfg.delta_w) if sc == 0.0 else sc * delta_last
+         for sc in cfg.ladder_scales] + [1e3 * delta_last + 1e3], 1)  # (B, L + 1)
+    Ls, oks = chol_nan(Hn[:, None] + deltas[:, :, None, None] * eye)
+    nl = len(cfg.ladder_scales)
+    # first successful ladder candidate; where none succeeds, the emergency
+    # shift (the last slot), chosen per lane
+    pick = torch.where(oks[:, :nl].any(1), _first_ok(oks[:, :nl]),
+                       torch.full_like(lanes, nl))
+    L = Ls[lanes, pick]
+    delta_used = deltas[lanes, pick]
+
+    def hsolve(b):
+        """(H + d diag(H + base))^-1 b through the equilibrated factor; b (B, n)."""
+        return torch.cholesky_solve((b * dinv)[..., None], L)[..., 0] * dinv
+
+    # Schur complement on the equality block (also equilibrated):
+    #   S dy = Je H^-1 rhs_z - rhs_y,   dz = H^-1 (rhs_z - Je' dy)
+    # Je H^-1 Je' is formed as the Gram matrix F'F, F = L^-1 D Je', which is
+    # positive semidefinite by construction: formed as Je (H^-1 Je') in f32
+    # its rounding fails the 1e-7 shift below where the exact matrix passes
+    # (eeParam: an f32 step 30x less accurate than at the shift f64 takes)
+    JeT = Je.transpose(1, 2)
+    F = torch.linalg.solve_triangular(L, dinv[:, :, None] * JeT, upper=False)  # (B, n, me)
+    delta_c = torch.clamp(1e-6 * delta_used, min=cfg.delta_c)
+    eye_s = torch.eye(me, dtype=dtype, device=dev)
+    S = F.transpose(1, 2) @ F + delta_c[:, None, None] * eye_s
+    dS = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=1e-12))
+    dSinv = 1.0 / dS
+    Sn = S * dSinv[:, :, None] * dSinv[:, None, :]
+    # Schur shift ladder: with redundant equality rows Je H^-1 Je' is only
+    # PSD; take the smallest shift whose factor exists
+    s_shifts = torch.tensor([1e-7, 1e-5, 1e-3, 1e-1], dtype=dtype, device=dev)
+    Ls_s, oks_s = chol_nan(Sn[:, None] + s_shifts[:, None, None] * eye_s)
+    L_s = Ls_s[lanes, _first_ok(oks_s)]
+
+    def ssolve(b):
+        return torch.cholesky_solve((b * dSinv)[..., None], L_s)[..., 0] * dSinv
+
+    def mv(M, v):
+        return (M @ v[..., None])[..., 0]
+
+    # the actual shifted matrix, for refinement
+    Hd = H0 + (delta_used[:, None] * dH * dH)[:, :, None] * eye
+
+    def resolve(rhs_z_v, rhs_y_v):
+        dy_v = ssolve(mv(Je, hsolve(rhs_z_v)) - rhs_y_v)
+        dz_v = hsolve(rhs_z_v - mv(JeT, dy_v))
+        for _ in range(cfg.refine_steps):
+            # one sweep of iterative refinement on the full KKT system
+            r_z = rhs_z_v - (mv(Hd, dz_v) + mv(JeT, dy_v))
+            r_y = rhs_y_v - (mv(Je, dz_v) - delta_c[:, None] * dy_v)
+            ddy = ssolve(mv(Je, hsolve(r_z)) - r_y)
+            ddz = hsolve(r_z - mv(JeT, ddy))
+            dz_v = dz_v + ddz
+            dy_v = dy_v + ddy
+        return dz_v, dy_v
+
+    dz, dy = resolve(rhs_z, rhs_y)
+    return dz, dy, delta_used, resolve
+
+
+def _dense_columns(fn, z, *row_args):
+    """Dense derivative matrices of a row function by forward mode.
+
+    ``fn(zr, *args)`` maps lane-major rows (B*k, n) to (B*k, m); ``row_args``
+    are per-lane tensors (B, ...) repeated alongside.  Returns (B, n, m): entry
+    [b, j] is d fn / d z_j of lane b, i.e. the Jacobian's column j.  One jvp
+    over B*c rows with identity tangents takes c columns; columns are taken
+    in chunks of at most ``_JAC_ROWS`` rows."""
+    B, n = z.shape
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    chunk = max(1, min(n, _JAC_ROWS // B))
+    cols = []
+    for c0 in range(0, n, chunk):
+        c = min(chunk, n - c0)
+        zr = z.repeat_interleave(c, 0)
+        tan = eye[c0 : c0 + c].repeat(B, 1)
+        args = [a.repeat_interleave(c, 0) for a in row_args]
+        out = jvp(lambda zz: fn(zz, *args), (zr,), (tan,))[1]
+        cols.append(out.reshape(B, c, -1))
+    return torch.cat(cols, 1)
+
+
+def make_dense_newton_step(cost_fn, eq_fn, ineq_fn, cfg: IPConfig):
+    """The default Newton step of :func:`solve`: dense Je, Jg and the
+    Hessian of ``cfg.hessian_mode`` ("exact": the Lagrangian's; "gn": the
+    cost's; "hybrid": the Lagrangian's with the multipliers scaled by the
+    per-lane switch flag, which gives the cost's where it is 0), then
+    H = W + Jg' diag(sigma) Jg and :func:`_solve_kkt`.
+
+    All three come from one forward-mode pass over the gradient of the
+    weighted Lagrangian: the rows E and g that the gradient's forward pass
+    evaluates are returned beside it, so their tangents are Je and Jg."""
+
+    def grad_and_rows(zr, y_r=None, lam_r=None):
+        def lag(zz):
+            E, g = eq_fn(zz), ineq_fn(zz)
+            total = cost_fn(zz)
+            if y_r is not None:
+                total = total + (E * y_r).sum(-1) - (g * lam_r).sum(-1)
+            # rows are independent: the sum's gradient is per row
+            return total.sum(), (E, g)
+
+        gr, (E, g) = grad(lag, has_aux=True)(zr)
+        return torch.cat([gr, E, g], -1)
+
+    def newton_step(z, y, lam, sigma, mu, use_exact, r_d, r_g, rhs_z, rhs_y, delta_last):
+        n, me = z.shape[1], y.shape[1]
+        if cfg.hessian_mode == "gn":
+            cols = _dense_columns(grad_and_rows, z)
+        else:
+            if cfg.hessian_mode == "hybrid":
+                uf = use_exact.to(z.dtype)[:, None]
+                y, lam = uf * y, uf * lam
+            cols = _dense_columns(grad_and_rows, z, y, lam)
+        # column j of each block is d / d z_j: W[b, i, j] as jacfwd(grad)
+        W, Je, Jg = cols.transpose(1, 2).split([n, me, cols.shape[2] - n - me], 1)
+        H = W + Jg.transpose(1, 2) @ (sigma[:, :, None] * Jg)
+        return _solve_kkt(H, Je, rhs_z, rhs_y, delta_last, cfg)
+
+    return newton_step
+
+
 def _ring_set(hist, it, val, max_iter):
     return hist.scatter(1, (it % max_iter)[:, None], val[:, None])
 
@@ -176,7 +341,7 @@ def solve(
     ``return_state`` just initializes)."""
     cfg = config
     if newton_step_fn is None:
-        raise NotImplementedError("the PyTorch port has the structured Newton step only")
+        newton_step_fn = make_dense_newton_step(cost_fn, eq_fn, ineq_fn, cfg)
     dtype, dev = z0.dtype, z0.device
     B = z0.shape[0]
     br = cfg.bound_relax_factor
@@ -587,4 +752,30 @@ def _init_state(cost_fn, eq_fn, ineq_fn, z0, cfg: IPConfig, y0, lam0, s0) -> IPS
     )
 
 
-__all__ = ["IPConfig", "IPResult", "IPState", "solve"]
+def solve_batch(cost_fn, eq_fn, ineq_fn, z0_batch, config: IPConfig = IPConfig(), theta=None,
+                theta_axes=None, **solve_kw):
+    """Solve B instances of a problem written over (z, theta).
+
+    ``cost_fn(z, theta)`` and friends take lane-major rows z (B*k, n) and a
+    parameter ``theta`` (a tensor, a dataclass of tensors, or None):
+    ``theta_axes=None`` shares one theta among the lanes, ``theta_axes=0``
+    gives each lane its own (leading axis B), repeated here for the k rows
+    of each lane.  The rest is :func:`solve`."""
+    B = z0_batch.shape[0]
+    if theta_axes not in (None, 0):
+        raise ValueError(f"theta_axes must be None or 0, got {theta_axes!r}")
+
+    def rows(k):
+        if theta_axes is None or k == 1:
+            return theta
+        if isinstance(theta, torch.Tensor):
+            return theta.repeat_interleave(k, 0)
+        return tree_map(lambda t: t.repeat_interleave(k, 0), theta)
+
+    def bind(fn):
+        return lambda z: fn(z, rows(z.shape[0] // B))
+
+    return solve(bind(cost_fn), bind(eq_fn), bind(ineq_fn), z0_batch, config, **solve_kw)
+
+
+__all__ = ["IPConfig", "IPResult", "IPState", "make_dense_newton_step", "solve", "solve_batch"]

@@ -7,8 +7,9 @@ IPOPT-style gradient-based scaling (the reference tunes
 - row scales for f, E, g computed once at z0 per lane:
   ``s_row = min(1, g_max / ||row grad||_inf)`` in scaled variables.
 
-:class:`ScaledNLP` holds the problem, its parameters and the scales of B
-lanes.  Its ``cost``/``eq``/``ineq`` take z of shape (B*k, n) for any k >= 1:
+:class:`ScaledNLP` holds the problem (any object with ``cost``, ``eq`` and
+``ineq`` over (z, theta): a landing problem, the eeParam problem), its
+parameters (a dataclass of tensors with leading B) and the scales of B lanes.  Its ``cost``/``eq``/``ineq`` take z of shape (B*k, n) for any k >= 1:
 rows are lane-major (row r belongs to lane r // k), which is how the line
 search evaluates k candidate steps of every lane in one call.
 """
@@ -21,14 +22,13 @@ import numpy as np
 import torch
 from torch.func import vjp, vmap
 
-from ..problems.landing import LandingParams
 from .._tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class ScaledNLP:
     problem: object
-    theta: LandingParams
+    theta: object  # dataclass of tensors, leading dimension B
     z_scale: torch.Tensor  # (B, n)  d: z = d * z_tilde
     f_scale: torch.Tensor  # (B,)
     eq_scale: torch.Tensor  # (B, me)
@@ -95,7 +95,7 @@ def _row_inf_norms(fn, z0, d, chunk=256):
     return torch.cat(norms).T
 
 
-def scale_problem(problem, theta: LandingParams, z0, z_scale=None,
+def scale_problem(problem, theta, z0, z_scale=None,
                   g_max: float = 50.0) -> ScaledNLP:
     """Build the scaled NLP of B lanes at their reference points z0 (B, n)."""
     B, n = z0.shape

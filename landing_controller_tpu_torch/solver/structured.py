@@ -1,7 +1,12 @@
 """Stage-structured Newton step for the landing NLPs (batch-first).
 
-Replaces a dense KKT factorization with per-knot blocks and the
-inverse-based block cyclic reduction of :mod:`..ops.cr_inverse`:
+Replaces a dense KKT factorization with per-knot blocks and a
+block-tridiagonal factorization chosen by ``kkt_backend``: "cri" (the
+default of the port's solvers), the inverse-based block cyclic reduction of
+:mod:`..ops.cr_inverse` whose block inverses are the hand-written kernel;
+"cr", the Cholesky-based cyclic reduction of :mod:`..ops.cyclic_reduction`;
+any other name, the sequential sweep of :mod:`..ops.block_tridiag`
+("scan", the JAX package's IPConfig default).  The structure used:
 
 - inequality rows of knot k touch only v_k = [x_k, u_k, jpos_k, c_{k+1}];
 - dynamics defects touch (x_k, u_k) and x_{k+1} diagonally;
@@ -13,8 +18,8 @@ Per-knot Jacobians and Hessians come from ``torch.func`` (``jacfwd`` /
 ``hessian``) vmapped over the B x (N-1) knot rows of all lanes at once.  The
 step runs in the solver's scaled space: stage functions compose the
 per-variable and per-row scales of the :class:`ScaledNLP`.  The inertia
-ladder is an extra axis L, so every cyclic-reduction level makes one kernel
-launch over B * L * n_odd blocks.
+ladder is an extra axis L, so every cyclic-reduction level of "cri" makes one
+kernel launch over B * L * n_odd blocks.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import numpy as np
 import torch
 from torch.func import hessian, jacfwd, vmap
 
+from ..ops.block_tridiag import qd_block_tridiag_factor, qd_block_tridiag_solve
 from ..ops.cr_inverse import cri_factor, cri_solve
+from ..ops.cyclic_reduction import cr_factor, cr_solve
 from ..ops.pallas_blocks import make_qd_inverse
 from ..problems.landing import knot_params
 
@@ -62,9 +69,11 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
 
     ``theta``: the lanes' LandingParams; ``snlp``: the ScaledNLP whose
     closures the outer loop uses (provides the z and row scales)."""
-    if cfg.kkt_backend != "cri":
+    backend = cfg.kkt_backend
+    if backend.startswith("cri") and backend != "cri":
         raise NotImplementedError(
-            f"kkt_backend={cfg.kkt_backend!r}: the PyTorch port has the 'cri' backend only"
+            f"kkt_backend={backend!r} forces a TPU or interpret path of the JAX package; "
+            "the port has 'cri', 'cr' and 'scan'"
         )
     L = _layout(problem)
     n, nx, nu, nw, nh, nsch, nd, bs, nb = (
@@ -152,7 +161,25 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     eye_nd = torch.eye(nd, dtype=dtype, device=dev)
     ar = torch.arange(nw, device=dev)
     ladder = cfg.ladder_scales
-    qdi = make_qd_inverse(nw, nd)
+    if backend == "cri":
+        qdi = make_qd_inverse(nw, nd)
+
+        def factor_fn(As, Cs):
+            return cri_factor(As, Cs, qdi)
+
+        solve_fn = cri_solve
+    elif backend == "cr":
+        def factor_fn(As, Cs):
+            return cr_factor(As, Cs, nw, nd)
+
+        def solve_fn(fac, rhs):
+            return cr_solve(fac, rhs, nw, nd)
+    else:
+        def factor_fn(As, Cs):
+            return qd_block_tridiag_factor(As, Cs, nw, nd)
+
+        def solve_fn(fac, rhs):
+            return qd_block_tridiag_solve(fac, rhs, nw, nd)
 
     if nsch:
         # ---- scheduled equality Jacobian coefficients (constant: the rows
@@ -287,7 +314,7 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         As[..., ar, ar] += deltas[:, :, None, None] * shift[:, None]
         As = As * d_block[:, None, :, :, None] * d_block[:, None, :, None, :]
         Cs = C * d_block[:, 1:, :, None] * d_block[:, :-1, None, :]
-        facs = cri_factor(As, Cs[:, None].expand(-1, len(ladder), -1, -1, -1), qdi)
+        facs = factor_fn(As, Cs[:, None].expand(-1, len(ladder), -1, -1, -1))
         oks = facs.ok  # (B, L)
         pick = torch.where(oks.any(1), torch.argmax(oks.to(torch.int32), 1),
                            torch.full_like(oks[:, 0], len(ladder) - 1, dtype=torch.int64))
@@ -315,10 +342,10 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
                     :, off_gd + 4 * (n - 1) :].reshape(B, n - 1, 12)
             b[:, 0, off_hd : off_hd + nh] = rhs_y_v[:, :nh]
             b_s = b * d_block
-            x_s = cri_solve(fac, b_s)
+            x_s = solve_fn(fac, b_s)
             for _ in range(cfg.refine_steps):
                 # blockwise iterative refinement
-                x_s = x_s + cri_solve(fac, b_s - K_mul(x_s))
+                x_s = x_s + solve_fn(fac, b_s - K_mul(x_s))
             x = x_s * d_block
             dz = blocks_to_z(x[..., :nw])
             dy_parts = [x[:, 0, off_hd : off_hd + nh], x[:, : n - 1, nw : nw + 12].reshape(B, -1)]

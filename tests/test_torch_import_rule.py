@@ -27,8 +27,10 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 21
-    assert "landing_controller_tpu_torch.dynamics.legs" in modules
+    assert len(modules) >= 26
+    for name in ("dynamics.legs", "ops.block_tridiag", "ops.cyclic_reduction", "problems.eeparam",
+                 "warmstart.cascade", "warmstart.replan"):
+        assert f"landing_controller_tpu_torch.{name}" in modules
     code = "\n".join(
         [
             "import sys",

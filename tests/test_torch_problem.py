@@ -76,9 +76,22 @@ def test_rotations_and_dynamics_match():
 
 
 def test_other_problem_kinds_not_ported():
-    """The motor-voltage rows run on the dense KKT path, which is not ported."""
-    with pytest.raises(NotImplementedError):
-        LandingProblem(LandingConfig(kinodynamic=True, voltage_limit=True), None)
+    """The motor-voltage rows (run on the dense KKT path) are ported: a
+    kinodynamic config with voltage_limit builds, with the JAX package's
+    row counts, labels and relaxation mask (the voltage rows are never
+    relaxed)."""
+    from landing_controller_tpu.problems.landing import LandingConfig as JLandingConfig
+    from landing_controller_tpu.problems.landing import LandingProblem as JLandingProblem
+    from landing_controller_tpu_torch.models import get_robot_params
+
+    pt = LandingProblem(LandingConfig(kinodynamic=True, voltage_limit=True, n_knots=7),
+                        get_robot_params("mc3D"))
+    pj = JLandingProblem(JLandingConfig(kinodynamic=True, voltage_limit=True, n_knots=7),
+                         j_get_robot_params("mc3D"))
+    assert (pt.n_vars, pt.n_eq, pt.n_ineq) == (pj.n_vars, pj.n_eq, pj.n_ineq)
+    assert pt.ineq_row_labels() == pj.ineq_row_labels()
+    _close(pt.relax_mask(), pj.relax_mask(), 0)
+    assert pt.ineq_row_labels()[-1] == "k5:volt[23]"
 
 
 @pytest.mark.parametrize("n", [13, 21])

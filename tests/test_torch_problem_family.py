@@ -73,8 +73,11 @@ def test_default_knot_counts_match():
         pt = getattr(t_landing, prob_fn)(get_robot_params("mc3D"))
         assert pt.config.n_knots == pj.config.n_knots
         assert dataclasses.asdict(pt.config) == dataclasses.asdict(pj.config)
-    with pytest.raises(NotImplementedError):
-        t_landing.kinodynamic_voltage_problem(get_robot_params("mc3D"))
+    # the voltage variant builds too (it runs on the dense KKT path)
+    pj = j_landing.kinodynamic_voltage_problem(j_get_robot_params("mc3D"))
+    pt = t_landing.kinodynamic_voltage_problem(get_robot_params("mc3D"))
+    assert dataclasses.asdict(pt.config) == dataclasses.asdict(pj.config)
+    assert (pt.n_vars, pt.n_eq, pt.n_ineq) == (pj.n_vars, pj.n_eq, pj.n_ineq)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
