@@ -46,10 +46,21 @@ Phases (any failure exits nonzero, before the result line):
    scenarios under kkt_backend "scan", "cr" and "cri";
 13. the cascade (srbm_lcp -> kinodynamic) on the first 32 drops of phase 6,
    beside phase 6's cold solves of them, and a ``Replanner`` that plans 8
-   scenarios and replans each once from a nudged measured state.
+   scenarios and replans each once from a nudged measured state;
+14. the training-data factory with the settings of tools/train_warmstart.py
+   (streaming kinodynamic solves, B=64, 50-iteration segments, NN retry, 64
+   drops), then on the card the normalization statistics, 400 epochs of
+   training, the network saved under ``build/`` and read back, a solver
+   that takes it as its guess, and ``nn_vs_nlp`` on one drop;
+15. the four-regime warm-start comparison on the freshly trained network;
+16. ``monte_carlo_envelope`` of srbm_lcp (64 drops) with the native
+   scenario pool and a result log under ``build/``, read back; then
+   ``sweep_foot_positions`` over 8 values of v_x on the ccc solver; two
+   ranks under NCCL where the machine has two cards.
 
-Phases 10-13 run side by side, one spawned process each; their wall times
-include one another's share of the card and of the host's cores.
+Phases 10-16 run side by side, one spawned process each (phase 15 waits for
+the network that phase 14 saves); their wall times include one another's
+share of the card and of the host's cores.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the ``{"ok": true, "device": ...}`` line.
@@ -65,6 +76,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -84,6 +96,15 @@ N_EEPARAM = 32  # phase 11
 N_BACKENDS = 16  # phase 12
 N_CASCADE = 32  # phase 13: cascade batch (the first drops of phase 6)
 N_REPLAN = 8  # phase 13: replanner batch
+# the depth of phases 14-16, cut for the run's time (PERF.md §13): the
+# chain factory -> warm start sets the script's length
+N_FACTORY, FACTORY_BATCH = 64, 64  # phase 14: drops sampled by the factory, its lanes
+N_WARMSTART, WARMSTART_TRIALS, WARMSTART_MAX_ITER = 16, 1, 100  # phase 15
+N_MONTECARLO, MC_CHUNK = 64, 64  # phase 16
+N_SWEEP = 8  # phase 16: foot-position sweep values of v_x
+# the side phases must end inside the run's limit (1200 s): past this many
+# seconds from the start the script stops waiting and fails
+SIDE_DEADLINE_S = 1120
 # phases 12 and 13 give the srbm_lcp solves the bench path's first-attempt
 # deadline (StreamingSolver attempt_iters (100, 150)) as their budget
 BENCH_FIRST_DEADLINE = 100
@@ -469,18 +490,26 @@ def max_rel_cost_gap(cost_a, cost_b, both):
     return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
 
 
-def kinodynamic_solver(dev):
-    """Phase 6's solver: the kinodynamic battery's `base` configuration
-    (tools/kino_battery.py:62-66; also tools/cascade_sweep.py:58)."""
+def tool_config(max_iter):
+    """The kinodynamic family's settings of tools/train_warmstart.py:48-57
+    (also tools/kino_battery.py:62-66 `base` and tools/cascade_sweep.py:58):
+    monotone barrier rule, hybrid Hessian, refine 3, delta_c 1e-6, cri."""
+    from landing_controller_tpu_torch import IPConfig
+
+    return IPConfig(max_iter=max_iter, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
+                    sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
+                    kkt_backend="cri")
+
+
+def kinodynamic_solver(dev, **kw):
+    """Phase 6's solver (the kinodynamic battery's `base` configuration);
+    ``kw`` adds the factory's NN retry."""
     import torch
 
-    from landing_controller_tpu_torch import IPConfig, LandingSolver
+    from landing_controller_tpu_torch import LandingSolver
 
-    return LandingSolver(
-        "kinodynamic", dtype=torch.float32, guess="reference", device=dev,
-        config=IPConfig(max_iter=200, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
-                        sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
-                        kkt_backend="cri"))
+    return LandingSolver("kinodynamic", dtype=torch.float32, guess="reference", device=dev,
+                         config=tool_config(200), **kw)
 
 
 def dense_path(torch, card, kino, kino_ref, qk, qdk, dev):
@@ -660,11 +689,223 @@ def cascade_phase(torch, card, kino, kino_ref, srbm, qk, qdk, launches, dev):
         raise AssertionError("the replanner did not go through the qd_inverse kernel")
 
 
-SIDE_PHASES = ("dense", "eeparam", "backends", "cascade")
+BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
+NN_FACTORY_PATH = os.path.join(BUILD_OUT, "nn_factory.npz")
+
+
+def factory_phase(torch, card, launches, dev):
+    """Phase 14: the streaming training-data factory with the settings of
+    tools/train_warmstart.py:48-67, then training on the card, the network
+    saved under build/ and read back, a solver taking it as its guess, and
+    nn_vs_nlp on one harvested drop."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.analysis import nn_vs_nlp
+    from landing_controller_tpu_torch.data import generate_training_data_streaming
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.warmstart import nn as wsnn
+
+    kino = kinodynamic_solver(dev, retry_guess="nn")
+    qd_inverse.launches = 0
+    data, wall, peak = run_timed(torch, lambda: generate_training_data_streaming(
+        kino, N_FACTORY, generator=torch.Generator().manual_seed(0), batch=FACTORY_BATCH,
+        segment=50))
+    launches["factory"] = qd_inverse.launches
+    m = data["inputs"].shape[0]
+    log(f"[factory] streaming kinodynamic N=21 (84-wide blocks, cri), B={FACTORY_BATCH} seg=50, "
+        f"max_iter {kino.config.max_iter}, "
+        f"NN retry, on {card}: harvested {m}/{N_FACTORY}, wall_s {wall:.2f} (pool set-up "
+        f"included), converged solves/s {m / wall:.3f}, peak device memory {peak:.3f} GB, "
+        f"qd_inverse launches {launches['factory']}")
+    shapes = {k: v.shape[1:] for k, v in data.items()}
+    if shapes != {"inputs": (9,), "X": (21, 12), "U": (20, 24), "jpos": (20, 12)}:
+        raise AssertionError(f"factory: unexpected shapes {shapes}")
+    if not all(np.isfinite(v).all() for v in data.values()):
+        raise AssertionError("factory: non-finite values in the harvest")
+    if launches["factory"] <= 0:
+        raise AssertionError("the factory did not go through the qd_inverse kernel")
+    if 2 * m < N_FACTORY:
+        raise AssertionError(f"factory: harvested {m} of {N_FACTORY} drops (< half)")
+
+    # normalization and training on the card
+    t = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    z6 = np.zeros((1, 6))
+    stats = wsnn.compute_stats(t["inputs"], t["X"], t["U"], t["jpos"],
+                               float(kino.build_params(z6, z6).mass[0]))
+    xin_n, targets = wsnn.normalize_sample(stats, t["inputs"], t["X"], t["U"], t["jpos"])
+    (mlp, losses), t_train, _ = run_timed(torch, lambda: wsnn.train_mlp(xin_n, targets, epochs=400))
+    log(f"[factory] train_mlp 9->256^3->976 on {m} samples, 400 epochs of batch {min(256, m)}, "
+        f"on {card}: loss {losses[0]:.5f} -> {losses[-1]:.5f}, {t_train:.2f} s")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0]):
+        raise AssertionError(f"training: last loss {losses[-1]} not below half the first "
+                             f"{losses[0]}")
+
+    # saved under build/, read back identical, taken up by a solver
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    tmp = NN_FACTORY_PATH.replace(".npz", ".part.npz")
+    wsnn.save_warmstart(tmp, mlp, stats)
+    mlp2, stats2 = wsnn.load_warmstart(tmp, device=dev)
+    same = [torch.equal(a, b)
+            for a, b in zip(mlp.state_dict().values(), mlp2.state_dict().values())]
+    same += [torch.equal(getattr(stats, f.name), getattr(stats2, f.name))
+             for f in dataclasses.fields(stats)]
+    if not all(same):
+        raise AssertionError("the saved network does not read back identical")
+    os.replace(tmp, NN_FACTORY_PATH)  # phase 15 waits for this file
+    nn_solver = LandingSolver("kinodynamic", dtype=torch.float32, config=tool_config(200),
+                              guess="nn", nn_path=NN_FACTORY_PATH, device=dev)
+    X0 = t["X"][:4, 0]
+    z_solver = nn_solver._cold_guess(nn_solver.build_params(X0[:, :6], X0[:, 6:]))
+    z_net = wsnn.nn_warmstart_guess(mlp, stats, X0[:, :6], X0[:, 6:], nn_solver.problem)
+    log(f"[factory] saved {NN_FACTORY_PATH} ({os.path.getsize(NN_FACTORY_PATH)} bytes), read back "
+        f"identical; LandingSolver(nn_path=...) guess equals the trained network's on 4 drops: "
+        f"{torch.equal(z_solver, z_net)}")
+    if not torch.equal(z_solver, z_net):
+        raise AssertionError("the solver's nn guess is not the trained network's")
+
+    res, wall, _ = run_timed(torch, lambda: nn_vs_nlp(mlp, stats, kino, X0[0, :6], X0[0, 6:]))
+    log(f"[factory] nn_vs_nlp on the first harvested drop, on {card}: NLP converged "
+        f"{res['converged']}, RMSE base position {res['rmse_base_pos']:.4f} m, orientation "
+        f"{res['rmse_base_ori']:.4f} rad, feet {res['rmse_feet']:.4f} m, GRF "
+        f"{res['rmse_grf']:.3f} N, joints {res['rmse_jpos']:.4f} rad, wall_s {wall:.2f}")
+    if not all(np.isfinite(res[k]).all() for k in ("X_nlp", "U_nlp", "X_nn", "U_nn", "jpos_nn")):
+        raise AssertionError("nn_vs_nlp: non-finite trajectories")
+
+
+def warmstart_phase(torch, card, launches, dev):
+    """Phase 15: the four-regime comparison of tools/train_warmstart.py:131-140
+    on the network phase 14 trains (waits for its file): the factory's
+    kinodynamic solver and the tool's srbm_lcp solver, drops of seed 999."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.analysis import warmstart_comparison
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.warmstart.nn import load_warmstart
+    from landing_controller_tpu_torch.warmstart.reference import sample_drop_scenario
+
+    t0 = time.time()
+    while not os.path.exists(NN_FACTORY_PATH):
+        if time.time() - t0 > SIDE_DEADLINE_S:
+            raise AssertionError("no network from the factory phase")
+        time.sleep(2.0)
+    log(f"[warmstart] waited {time.time() - t0:.1f} s for the factory's network")
+    mlp, stats = load_warmstart(NN_FACTORY_PATH, device=dev)
+    kino = LandingSolver("kinodynamic", dtype=torch.float32, config=tool_config(WARMSTART_MAX_ITER),
+                         retry_guess="nn", device=dev)
+    srbm = LandingSolver("srbm_lcp", dtype=torch.float32, config=tool_config(WARMSTART_MAX_ITER),
+                         device=dev)
+    T, B = WARMSTART_TRIALS, N_WARMSTART
+    q, qd = sample_drop_scenario(T * B, torch.Generator().manual_seed(999))
+    qd_inverse.launches = 0
+    res, wall, _ = run_timed(torch, lambda: warmstart_comparison(
+        kino, srbm, mlp, stats, q.reshape(T, B, 6), qd.reshape(T, B, 6), n_trials=T))
+    launches["warmstart"] = qd_inverse.launches
+    log(f"[warmstart] B={B}, {T} trial(s) after one untimed pass, max_iter {WARMSTART_MAX_ITER}, "
+        f"on {card}: wall_s {wall:.2f}, qd_inverse launches {launches['warmstart']}")
+    for k, v in res["t"].items():
+        log(f"[warmstart] time {k}: mean {v.mean():.4f} s, min {v.min():.4f} s per batch of {B}")
+    for k, v in res["convergence"].items():
+        log(f"[warmstart] convergence {k}: {v.mean():.4f}")
+    if launches["warmstart"] <= 0:
+        raise AssertionError("the warm-start comparison did not go through the qd_inverse kernel")
+    nn_ws, cold = res["convergence"]["nn_ws"].mean(), res["convergence"]["cold"].mean()
+    if nn_ws < cold - 0.15:
+        raise AssertionError(f"warm start: nn_ws convergence {nn_ws:.3f} < cold {cold:.3f} - 0.15")
+
+
+def montecarlo_phase(torch, card, launches, dev):
+    """Phase 16: monte_carlo_envelope of srbm_lcp (the port's default
+    settings) with the native pool and a result log under build/, read back;
+    then the foot-position sweep over v_x on the ccc solver (phase 7's
+    settings)."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.analysis.foot_positions import sweep_foot_positions
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.parallel.montecarlo import monte_carlo_envelope
+    from landing_controller_tpu_torch.runtime import ResultLog, native_available, read_result_log
+
+    if not native_available():
+        raise AssertionError("the native scenario pool did not build")
+    solver = LandingSolver("srbm_lcp", dtype=torch.float32, device=dev)
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    path = os.path.join(BUILD_OUT, "montecarlo.log")
+    if os.path.exists(path):
+        os.remove(path)
+    qd_inverse.launches = 0
+    with ResultLog(path) as rlog:
+        res, wall, _ = run_timed(torch, lambda: monte_carlo_envelope(
+            solver, N_MONTECARLO, chunk=MC_CHUNK, seed=0, result_log=rlog))
+    launches["montecarlo"] = qd_inverse.launches
+    recs = read_result_log(path)
+    log(f"[montecarlo] srbm_lcp N=21, default settings, {N_MONTECARLO} drops in chunks of "
+        f"{MC_CHUNK}, native pool, on {card}: success_rate {res['success_rate']:.4f}, solves/s "
+        f"{res['solves_per_sec']:.3f} (converged over solve time {res['wall_time_s']:.2f} s; wall "
+        f"{wall:.2f} s), qd_inverse launches {launches['montecarlo']}; result log {len(recs)} "
+        f"records read back")
+    for k in ("term_min", "term_max"):
+        env = None if res[k] is None else np.round(res[k].astype(np.float64), 3).tolist()
+        log(f"[montecarlo] terminal-state envelope {k[5:]} {env}")
+    if len(recs) != res["n_scenarios"] or res["n_scenarios"] != N_MONTECARLO:
+        raise AssertionError(f"result log holds {len(recs)} records for {res['n_scenarios']} "
+                             "solves")
+    logged_ics = np.stack([np.concatenate([r["q_init"], r["qd_init"]]) for r in recs])
+    if ([r["converged"] for r in recs] != res["converged"].tolist()
+            or not np.array_equal(logged_ics, res["ics"].astype(np.float32))):
+        raise AssertionError("the result log disagrees with the sweep")
+    n_vars = solver.problem.n_vars
+    if not (np.isfinite(res["terminal_states"]).all()
+            and all(np.isfinite(r["z"]).all() and len(r["z"]) == n_vars for r in recs)):
+        raise AssertionError("montecarlo: non-finite or short trajectories")
+    if launches["montecarlo"] <= 0:
+        raise AssertionError("the sweep did not go through the qd_inverse kernel")
+    if res["success_rate"] < 0.5:
+        raise AssertionError(f"montecarlo: success rate {res['success_rate']:.3f} < 0.5")
+
+    ccc_cfg = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device=dev).config
+    ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device=dev,
+                        config=dataclasses.replace(ccc_cfg, max_iter=150))
+    vx = np.linspace(-1.0, 1.0, N_SWEEP)
+    qd_inverse.launches = 0
+    out, wall, _ = run_timed(torch, lambda: sweep_foot_positions(
+        ccc, [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5], 3, vx))
+    launches["foot_sweep"] = qd_inverse.launches
+    log(f"[montecarlo] sweep_foot_positions ccc N=41 over v_x {vx.round(3).tolist()}, on {card}: "
+        f"converged {sum(o['converged'] for o in out)}/{N_SWEEP}, wall_s {wall:.2f}, qd_inverse "
+        f"launches {launches['foot_sweep']}")
+    for o in out:
+        a = o["analysis"]
+        log(f"[montecarlo]   v_x {o['value']:+.3f}: converged {o['converged']}, touchdown knots "
+            f"{a.td.tolist()}, dot(v, p) {np.round(a.dot_v_p, 3).tolist()}")
+    if launches["foot_sweep"] <= 0:
+        raise AssertionError("the foot-position sweep did not go through the qd_inverse kernel")
+
+
+def montecarlo_rank(rank, world, port):
+    """One rank of the two-rank sweep under NCCL (cuda:rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.parallel.batch import backend_for, make_scenario_mesh
+    from landing_controller_tpu_torch.parallel.montecarlo import monte_carlo_envelope
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(backend_for("cuda"), init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_scenario_mesh(f"cuda:{rank}")
+        solver = LandingSolver("srbm_lcp", dtype=torch.float32, device=mesh.device)
+        res = monte_carlo_envelope(solver, MC_CHUNK, chunk=MC_CHUNK, mesh=mesh)
+        local = int(res["converged"].sum())
+        log(f"[montecarlo] rank {rank} of {world} on {mesh.device}: {len(res['converged'])} local "
+            f"rows, {local} converged; global {res['n_converged']}/{res['n_scenarios']}")
+    finally:
+        dist.destroy_process_group()
+
+
+SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo")
 
 
 def side_phase(name, card, qk, qdk, kino_ref):
-    """One of phases 10-13 in a process of its own; returns its kernel
+    """One of phases 10-16 in a process of its own; returns its kernel
     launch counts {path: launches}."""
     import torch
 
@@ -678,11 +919,22 @@ def side_phase(name, card, qk, qdk, kino_ref):
         eeparam_phase(torch, card, "cuda")
     elif name == "backends":
         backends_phase(torch, card, srbm_lcp_path()[0], launches, "cuda")
-    else:
+    elif name == "cascade":
         cascade_phase(torch, card, kinodynamic_solver("cuda"), kino_ref, srbm_lcp_path()[0], qk,
                       qdk, launches, "cuda")
+    else:
+        {"factory": factory_phase, "warmstart": warmstart_phase,
+         "montecarlo": montecarlo_phase}[name](torch, card, launches, "cuda")
     log(f"[{name}] phase done in {time.time() - t0:.1f} s")
     return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def srbm_lcp_path():
@@ -1054,28 +1306,41 @@ def main() -> int:
     profile_iteration(torch, volt, *sample_drop_scenarios(12, 32), "kinodynamic_voltage (dense)",
                       card)
 
-    # ---- 10-13. the dense path, EEParamSolver, the backends, cascade and
-    # replan: four processes side by side on the card.  Each path is
-    # host-bound (the device idles 75-95% of an iteration, phase 9), so
-    # together they take about as long as the longest; their wall times
-    # include the others' share of the card and the host's cores
+    # ---- 10-16. the dense path, EEParamSolver, the backends, cascade and
+    # replan, the factory and training, the warm-start comparison, the
+    # Monte-Carlo sweep: seven processes side by side on the card.  Each
+    # path is host-bound (the device idles 75-95% of an iteration, phase 9),
+    # so together they take about as long as the longest chain (factory ->
+    # warm start); their wall times include the others' share of the card
+    # and the host's cores
     log(f"[phases 1-9] {time.time() - t_start:.1f} s")
     kino_ref = {"converged": sol.converged.cpu().numpy(), "z": sol.z.cpu().numpy(),
                 "cost": sol.cost.cpu().numpy()}
+    if os.path.exists(NN_FACTORY_PATH):
+        os.remove(NN_FACTORY_PATH)  # phase 15 waits for this run's network
     pool = multiprocessing.get_context("spawn").Pool(len(SIDE_PHASES))
     try:
         jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref))
                 for name in SIDE_PHASES]
         for job in jobs:
-            launches.update(job.get())
+            # a worker that dies loses its job: wait no longer than the run allows
+            launches.update(job.get(timeout=max(1.0, SIDE_DEADLINE_S - (time.time() - t_start))))
     finally:
         pool.terminate()
         pool.join()
+    if torch.cuda.device_count() >= 2:
+        torch.multiprocessing.start_processes(montecarlo_rank, args=(2, free_port()), nprocs=2,
+                                              start_method="spawn")
+    else:
+        log(f"[montecarlo] two ranks under NCCL: not run, this machine has "
+            f"{torch.cuda.device_count()} card (tests/test_torch_parallel.py runs two gloo ranks "
+            f"on the CPU)")
 
     log(f"[done] {time.time() - t_start:.1f} s in all")
     # ---- the kernels line, the card line, the result line
     solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
-                    "srbm_lcp_cri_backend", "cascade", "replan")
+                    "srbm_lcp_cri_backend", "cascade", "replan", "factory", "warmstart",
+                    "montecarlo", "foot_sweep")
     kernels = [{
         "name": "qd_inverse",
         "route": "cuda",

@@ -6,7 +6,10 @@ ccc and contact-scheduled variants, on the stage-structured KKT path
 (backends "cri", "cr", "scan") or the dense one; the free-contact-timing
 eeParam solver; batch and streaming solves, the SRBM -> kinodynamic cascade
 and the receding-horizon replanner (``warmstart.cascade``,
-``warmstart.replan``).  The block inverses of the "cri" factorization are
+``warmstart.replan``); the training-data factory and the warm start's
+training (``data``, ``warmstart.nn``), the analyses (``analysis``), and
+Monte-Carlo envelope sweeps over one process per card (``parallel``,
+``runtime``).  The block inverses of the "cri" factorization are
 hand-written CUDA kernels for Hopper (``csrc/qd_inverse.cu``,
 ``csrc/chol_inverse.cu``).  Imports no JAX; the JAX package beside it is the
 reference the tests hold it against.

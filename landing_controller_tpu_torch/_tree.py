@@ -4,13 +4,14 @@ The port keeps solver state, problem parameters and scaled problems as
 dataclasses whose tensor fields all carry the same leading batch dimension.
 These helpers map a function over those tensor fields, recursing into
 fields that are themselves dataclasses (other fields, such as a problem
-object, pass through unchanged).
+object, pass through unchanged); ``to_numpy`` brings one leaf to the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -46,3 +47,8 @@ def tree_stack(objs):
 def tree_cat(objs):
     """Concatenate a list of like dataclasses along their batch axis."""
     return tree_map(lambda *ls: torch.cat(ls), objs[0], *objs[1:])
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

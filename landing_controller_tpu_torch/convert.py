@@ -1,7 +1,8 @@
 """Conversion of parameters given as numpy arrays into the port's types.
 
 Feeds both packages identical problem parameters and warm-start weights:
-the JAX side's arrays go through ``np.asarray`` and come in here.
+the JAX side's arrays go through ``np.asarray`` and come in here, and the
+port's trained weights and statistics go back out as numpy arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .problems.landing import LandingParams
-from .warmstart.nn import build_mlp, stats_from_numpy
+from .warmstart.nn import build_mlp, mlp_weights_numpy, stats_from_numpy, stats_to_numpy
 
 
 def landing_params_from_numpy(params: dict, dtype=torch.float64, device="cpu") -> LandingParams:
@@ -37,4 +38,12 @@ def mlp_from_numpy(weights, biases, stats: dict, dtype=torch.float32, device="cp
     return build_mlp(weights, biases, dtype, device), stats_from_numpy(stats, dtype, device)
 
 
-__all__ = ["landing_params_from_numpy", "mlp_from_numpy"]
+def mlp_to_numpy(mlp, stats):
+    """(WarmstartMLP, DataStats) -> ((in, out) weight matrices, biases,
+    {DataStats field: array}): the inverse of :func:`mlp_from_numpy`, the
+    arrays the JAX package's ``MLPParams`` and ``DataStats`` are built from."""
+    weights, biases = mlp_weights_numpy(mlp)
+    return weights, biases, stats_to_numpy(stats)
+
+
+__all__ = ["landing_params_from_numpy", "mlp_from_numpy", "mlp_to_numpy"]

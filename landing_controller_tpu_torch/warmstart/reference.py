@@ -32,6 +32,40 @@ HIP_SRBM = np.array(
 )
 
 
+def drop_scenario_from_draws(rpy, omega, v):
+    """Drop conditions for given attitudes, body rates and velocities (each
+    (n, 3)): q_init = [0, 0, z0, rpy], qd_init = [omega, v], with the
+    hip-clearance height z0 = 0.35 + |min_leg hip_world_z| + |dt_0 v_z|
+    (landing_optimization.m:210-216; dt_0 = DT_PRODUCTION[0], XYZ rotation)."""
+    R = rpy_to_rot_xyz(rpy)  # (n, 3, 3)
+    hips = torch.as_tensor(HIP_SRBM, dtype=rpy.dtype, device=rpy.device)
+    hip_z = (hips @ R.transpose(-1, -2))[..., 2]  # (n, 4)
+    z0 = 0.35 + hip_z.amin(-1).abs() + (DT_PRODUCTION[0] * v[:, 2]).abs()
+    zeros = torch.zeros_like(z0)
+    q_init = torch.cat([torch.stack([zeros, zeros, z0], -1), rpy], -1)
+    return q_init, torch.cat([omega, v], -1)
+
+
+def sample_drop_scenario(n: int, generator: torch.Generator | None = None,
+                         dtype=torch.float32, device="cpu"):
+    """n random drop conditions -> (q_init (n, 6), qd_init (n, 6)).
+
+    Sampling ranges of the production driver (landing_optimization.m:207-218):
+    roll, yaw ~ U(+-0.25), pitch ~ U(+-pi/3), omega ~ U(+-0.5), v_xy ~ U(+-1),
+    v_z ~ -U(0.5, 5); the height by :func:`drop_scenario_from_draws`.  The
+    draws come from ``generator`` (a fresh one seeded 0 when None) on its
+    own device; the result is moved to ``device``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    u = torch.rand((n, 9), generator=generator, dtype=dtype, device=generator.device)
+    half = torch.as_tensor([0.25, np.pi / 3, 0.25, 0.5, 0.5, 0.5, 1.0, 1.0], dtype=dtype,
+                           device=u.device)
+    w = (2.0 * u[:, :8] - 1.0) * half
+    vz = -4.5 * u[:, 8:9] - 0.5
+    q, qd = drop_scenario_from_draws(w[:, 0:3], w[:, 3:6], torch.cat([w[:, 6:8], vz], -1))
+    return q.to(device), qd.to(device)
+
+
 def kin_box_limits(v, direction: str):
     """Velocity-scaled kinematic-box widening (kin_box_limits.m:1-21)."""
     v_max = 2.0

@@ -27,9 +27,12 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 26
+    assert len(modules) >= 43
     for name in ("dynamics.legs", "ops.block_tridiag", "ops.cyclic_reduction", "problems.eeparam",
-                 "warmstart.cascade", "warmstart.replan"):
+                 "warmstart.cascade", "warmstart.replan", "data.factory", "parallel.batch",
+                 "parallel.multihost", "parallel.montecarlo", "runtime.native",
+                 "analysis.warmstart_bench", "analysis.nn_validation",
+                 "analysis.foot_positions"):
         assert f"landing_controller_tpu_torch.{name}" in modules
     code = "\n".join(
         [
@@ -55,8 +58,9 @@ def test_port_sources_name_no_jax():
     pattern = re.compile(r"import jax|from jax|landing_controller_tpu\.")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(PKG_DIR):
-        files += [os.path.join(d, f) for f in fs if f.endswith((".py", ".cu", ".cuh"))]
+        files += [os.path.join(d, f) for f in fs if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     assert sum(f.endswith((".cu", ".cuh")) for f in files) == 3
+    assert sum(f.endswith(".cpp") for f in files) == 1  # the native scenario pool
     for path in files:
         with open(path) as f:
             src = f.read()

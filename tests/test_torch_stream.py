@@ -3,7 +3,7 @@
 - an accounting run: batch 2, 4 scenarios, n_knots 13, with a retry chain;
   every scenario finishes and the stats dict has the JAX StreamingSolver's keys;
 - the segmented solve is a pure re-chunking of the monolithic one;
-- constructor validation of the attempt deadlines.
+- constructor validation of the attempt deadlines; the default sampler.
 """
 
 import numpy as np
@@ -74,5 +74,5 @@ def test_attempt_deadlines_need_guess_families():
     with pytest.raises(ValueError):
         StreamingSolver(s, batch=2, sampler=_sampler, attempt_iters=(10, 10, 10))
     StreamingSolver(s, batch=2, sampler=_sampler, attempt_iters=(10, 10))
-    with pytest.raises(ValueError):
-        StreamingSolver(s, batch=2)  # no sampler
+    # no sampler given: the drop sampler, from a generator seeded 0
+    assert StreamingSolver(s, batch=2).sampler(1)[0].shape == (1, 6)
