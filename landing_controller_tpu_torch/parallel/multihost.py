@@ -11,6 +11,10 @@ driver reads the same in both packages (examples/envelope_sweep.py):
 - `local_shards`: the rank's rows of a result, as a numpy array;
 - `replicated_value`: an all-reduced scalar (every rank holds the same
   value) as a host value.
+
+Under one process per card each is one conversion (`torch.as_tensor` or
+`to_numpy`) and hides nothing.  They stay for drivers written against the
+JAX package's names, which then switch packages by their imports alone.
 """
 
 from __future__ import annotations

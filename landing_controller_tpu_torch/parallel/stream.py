@@ -12,8 +12,7 @@ Three pieces of the design keep the host out of the way:
 - harvest and refill are gathers and scatters on the device: finished lanes
   scatter their results into per-scenario slots, and refilled or retrying
   lanes gather their fresh lane data from the pool;
-- the host reads one small packed stats tensor per ``steps_per_call``
-  segments (default: every segment).
+- the host reads one small packed stats tensor per segment.
 
 A scenario whose first attempt fails is re-solved in place down the
 solver's retry chain (variant k uses ``retry_guess[k-1]``), each attempt
@@ -62,16 +61,8 @@ class StreamingSolver:
     default :func:`..warmstart.reference.sample_drop_scenario` drawing from
     one ``torch.Generator`` seeded 0 (successive calls continue its stream).
 
-    ``retry_failed=False`` records a scenario after its first attempt (one
-    attempt, the first deadline); otherwise a failed attempt is re-solved
-    down the retry chain, one attempt per entry of ``attempt_iters``.
-
-    ``steps_per_call``: the number of [segment -> harvest -> refill] cycles
-    queued on the device between two host reads of the packed stats (the
-    counterpart of the JAX driver's scan over cycles in one dispatch).  The
-    run ends at the first read that finds every scenario finished, so up to
-    ``steps_per_call - 1`` cycles may run on drained lanes; with
-    ``max_wall_s`` the clock is read once per call as well.
+    A scenario gets one attempt per entry of ``attempt_iters``; a single
+    deadline records every scenario after its first attempt.
     """
 
     def __init__(
@@ -80,10 +71,8 @@ class StreamingSolver:
         batch: int = 64,
         segment: int = 50,
         sampler: Callable | None = None,
-        retry_failed: bool = True,
         attempt_iters: tuple = (100, 150),
         collect_z: bool = False,
-        steps_per_call: int = 1,
     ):
         if sampler is None:
             from ..warmstart.reference import sample_drop_scenario
@@ -98,7 +87,6 @@ class StreamingSolver:
         self.batch = batch
         self.segment = segment
         self.sampler = sampler
-        self.retry_failed = retry_failed
         self.attempt_iters = tuple(attempt_iters)
         n_chain = len(solver.retry_guess or ("default",))
         if len(self.attempt_iters) > 1 + n_chain:
@@ -106,9 +94,8 @@ class StreamingSolver:
                 f"{len(self.attempt_iters)} attempt deadlines but only {1 + n_chain} "
                 f"cold-guess families (guess + retry chain {solver.retry_guess})"
             )
-        self.n_attempts = len(self.attempt_iters) if retry_failed else 1
+        self.n_attempts = len(self.attempt_iters)
         self.collect_z = collect_z
-        self.steps_per_call = max(1, int(steps_per_call))
 
     # ------------------------------------------------------------------
     def _pool_lanes(self, pool_q, pool_qd) -> _Lanes:
@@ -236,9 +223,8 @@ class StreamingSolver:
 
         t0 = time.time()
         while True:
-            for _ in range(self.steps_per_call):
-                carry = self._step(pool, carry, P)
-            res_np = carry.res.cpu().numpy()  # the one host read per call
+            carry = self._step(pool, carry, P)
+            res_np = carry.res.cpu().numpy()  # the one host read per segment
             if res_np[0, :P].sum() >= P:
                 break
             if max_wall_s is not None and time.time() - t0 > max_wall_s:

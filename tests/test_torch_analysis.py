@@ -2,11 +2,12 @@
 
 - warm-start comparison: ``nn_warmstart_guess`` on the comparison's batch
   (the JAX harness test's untrained 8-wide network and unit statistics)
-  matches JAX to 1e-10 in f64 and 1e-6 in f32; the result dict's keys and
-  shapes equal JAX's at the same small settings (2 trials of 2 drops, 3
-  iterations).  The JAX side's solves are stubs there: compiling its N=21
-  kinodynamic solves takes minutes on a CPU, and the dict is built from
-  their timings and convergence flags alone;
+  matches JAX to 1e-10 in f64 and 1e-6 in f32; around one stub solve on
+  both sides (compiling JAX's N=21 kinodynamic solves takes minutes on a
+  CPU, and the dict is built from their timings and convergence flags
+  alone) the result dicts have the same keys, shapes and dtypes and equal
+  convergence rows (2 trials of 2 drops); the port's harness also runs
+  over its own solves (3 iterations, one trial);
 - ``nn_vs_nlp``: JAX's function, handed the port's NLP solution through a
   stub solve, returns the port's dict: the same keys, every entry to 1e-10
   (f64);
@@ -33,7 +34,7 @@ from landing_controller_tpu.api import LandingSolver as JaxLandingSolver
 from landing_controller_tpu.warmstart import nn as jnn
 from landing_controller_tpu_torch import convert
 from landing_controller_tpu_torch.analysis import (foot_positions, nn_vs_nlp, plot_nn_overlay,
-                                                   plot_warmstart_comparison,
+                                                   plot_warmstart_comparison, warmstart_bench,
                                                    warmstart_comparison)
 from landing_controller_tpu_torch.api import LandingSolver
 from landing_controller_tpu_torch.solver.ip import IPConfig
@@ -104,21 +105,40 @@ def test_nn_guess_of_the_comparison_batch_matches_jax(dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
 
 
-def test_comparison_dict_matches_jax(monkeypatch, tmp_path):
+def _stub_solve(q, qd, z0=None):
+    """One stub solve for both packages, batched or per drop: a z that
+    depends on the drop and a convergence flag that differs between drops."""
+    Sol = collections.namedtuple("Sol", "z converged")
+    return Sol(z=q.sum(-1) + qd.sum(-1), converged=qd[..., 5] < -1.5)
+
+
+def test_comparison_dict_matches_jax(monkeypatch):
+    """Both harnesses around the same stub solves: the same keys, timing
+    rows of the same shapes and dtypes, and the same convergence rows."""
     params, stats = _jax_net()
     q0s, qd0s = _drops()
     kino, srbm = _port_solvers()
     mlp, st = _port_net(params, stats, torch.float32)
-    got = warmstart_comparison(kino, srbm, mlp, st, q0s, qd0s, n_trials=2)
+    seen = []
 
-    # JAX's harness around stub solves (see the module docstring)
-    Sol = collections.namedtuple("Sol", "z converged")
+    def nn_ws(q, qd, z0=None):
+        seen.append(z0)
+        return _stub_solve(q, qd)
+
+    monkeypatch.setattr(kino, "_solve_impl", nn_ws)
+    monkeypatch.setattr(kino, "solve_batch", _stub_solve)
+    monkeypatch.setattr(warmstart_bench, "make_cascade",
+                        lambda s1, s2: lambda q, qd: (_stub_solve(q, qd),) * 2)
+    got = warmstart_comparison(kino, srbm, mlp, st, q0s, qd0s, n_trials=2)
+    # nn_ws starts from the network's guess of its batch (untimed pass, 2 trials)
+    assert len(seen) == 3 and all(z0.shape == (2, kino.problem.n_vars) for z0 in seen)
+
     jkino = JaxLandingSolver("kinodynamic", dtype=jnp.float32)
     jsrbm = JaxLandingSolver("srbm_lcp", n_knots=N, dtype=jnp.float32)
-    stub = lambda q, qd, z0=None: Sol(z=q.sum() + qd.sum(), converged=qd[5] < -1.5)  # noqa: E731
-    monkeypatch.setattr(jkino, "_solve_impl", stub)
-    monkeypatch.setattr(jkino, "solve_batch", jax.jit(jax.vmap(stub)))
-    monkeypatch.setattr(j_wsb, "make_cascade", lambda s1, s2: lambda q, qd: (stub(q, qd),) * 2)
+    monkeypatch.setattr(jkino, "_solve_impl", _stub_solve)
+    monkeypatch.setattr(jkino, "solve_batch", jax.jit(jax.vmap(_stub_solve)))
+    monkeypatch.setattr(j_wsb, "make_cascade",
+                        lambda s1, s2: lambda q, qd: (_stub_solve(q, qd),) * 2)
     want = j_wsb.warmstart_comparison(jkino, jsrbm, params, stats, q0s, qd0s, n_trials=2)
 
     assert got.keys() == want.keys() and got["batch_size"] == want["batch_size"] == 2
@@ -127,7 +147,20 @@ def test_comparison_dict_matches_jax(monkeypatch, tmp_path):
         for k in got[part]:
             assert got[part][k].shape == want[part][k].shape == (2,)
             assert got[part][k].dtype == want[part][k].dtype
-    assert all((v > 0).all() for v in got["t"].values())
+    for k in want["convergence"]:
+        np.testing.assert_array_equal(got["convergence"][k], want["convergence"][k], err_msg=k)
+    assert {float(v) for v in got["convergence"]["cold"]} != {0.0}
+
+
+def test_comparison_runs_the_port_solvers(tmp_path):
+    """The harness over the port's own solves (3 iterations, one trial),
+    and its plot."""
+    params, stats = _jax_net()
+    q0s, qd0s = _drops()
+    kino, srbm = _port_solvers()
+    mlp, st = _port_net(params, stats, torch.float32)
+    got = warmstart_comparison(kino, srbm, mlp, st, q0s, qd0s, n_trials=1)
+    assert all(v.shape == (1,) and (v > 0).all() for v in got["t"].values())
     assert all(((v >= 0) & (v <= 1)).all() for v in got["convergence"].values())
     out = tmp_path / "ws.png"
     assert plot_warmstart_comparison(got, save_path=str(out)) == str(out) and out.exists()
