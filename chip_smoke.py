@@ -56,9 +56,19 @@ Phases (any failure exits nonzero, before the result line):
 16. ``monte_carlo_envelope`` of srbm_lcp (64 drops) with the native
    scenario pool and a result log under ``build/``, read back; then
    ``sweep_foot_positions`` over 8 values of v_x on the ccc solver; two
-   ranks under NCCL where the machine has two cards.
+   ranks under NCCL where the machine has two cards;
+17. f64 on the card: phase 12's srbm_lcp ``solve_batch`` in f64 and in f32
+   on cri, then phase 16's ccc foot sweep in f64, all through the kernel's
+   double instance;
+18. the rigid-body dynamics layer at batch scale: FK, CRBA, RNEA, forward
+   dynamics, rotors, energy and the tree-sparse factorization over 65,536
+   seeded configurations in f32 and f64 (ms and kernel launches per call,
+   the first 256 lanes against the CPU in f64), then ``joint_pd_sim`` of
+   1,024 drops for 500 steps;
+19. the VBL Riccati value function along every converged trajectory of
+   phase 4, in f64, held against the CPU on two of them.
 
-Phases 10-16 run side by side, one spawned process each (phase 15 waits for
+Phases 10-19 run side by side, one spawned process each (phase 15 waits for
 the network that phase 14 saves); their wall times include one another's
 share of the card and of the host's cores.
 
@@ -84,9 +94,10 @@ import time
 import numpy as np
 
 # the theoretical peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes
-# per second and f32 operations per second outside the tensor cores
+# per second, and f32 and f64 operations per second outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
 
 N_SCENARIOS = 64  # the srbm_lcp path: one pool
 N_KINO = 128  # the kinodynamic path's batch
@@ -102,6 +113,25 @@ N_FACTORY, FACTORY_BATCH = 64, 64  # phase 14: drops sampled by the factory, its
 N_WARMSTART, WARMSTART_TRIALS, WARMSTART_MAX_ITER = 16, 1, 100  # phase 15
 N_MONTECARLO, MC_CHUNK = 64, 64  # phase 16
 N_SWEEP = 8  # phase 16: foot-position sweep values of v_x
+N_DYN, N_DYN_CHECK = 65536, 256  # phase 18: configurations, lanes held against the CPU
+N_SIM, SIM_STEPS = 1024, 500  # phase 18: joint_pd_sim drops and steps (dt 1e-4)
+# two lanes are held against the CPU in f64: the untilted home-pose drop of
+# tests/test_torch_featherstone.py::test_joint_pd_sim and the first seeded
+# drop.  No lane can be held step by step over the whole horizon: the stiff
+# joint PD is chaotic in both lanes (on the CPU in f64 a one-part-in-1e15
+# nudge of the configuration moves the joint rates by 3e-6 at step 10 and
+# O(1) by step 20, about four times more each step), so
+#  - each of the first SIM_CHECK_STEPS steps' gap to the CPU must stay within
+#    20 times the CPU's own change under that nudge (plus 1e-12), the repo's
+#    sensitivity rule, over the steps where the change grows;
+#  - over all SIM_STEPS steps, the CPU's share of steps with ground force and
+#    its final base height must lie in the range of SIM_ENSEMBLE copies of the
+#    lane on the card, nudged by k * 1e-15 (k = 0 .. SIM_ENSEMBLE - 1),
+#    widened on each side by the range's width or by SIM_SPREAD_FLOOR
+#    (share, m), whichever is larger.
+SIM_CHECK_STEPS = 30
+SIM_ENSEMBLE = 64
+SIM_SPREAD_FLOOR = (0.01, 1e-4)
 # the side phases must end inside the run's limit (1200 s): past this many
 # seconds from the start the script stops waiting and fails
 SIDE_DEADLINE_S = 1120
@@ -209,26 +239,27 @@ def median_ms(torch, fn, reps=25, inner=5):
     return float(np.median(times))
 
 
-def qd_inverse_bound_ms(m, np_, nd):
+def qd_inverse_bound_ms(m, np_, nd, itemsize=4):
     """Least time for m block inverses on an H100: each input read once and
     each output written once over the memory rate, against the
-    factorization's f32 operations over the f32 peak."""
+    factorization's operations over the peak of their type (f32, or f64
+    where itemsize is 8)."""
     bs = np_ + nd
-    nbytes = m * (2 * bs * bs * 4 + 1)
+    nbytes = m * (2 * bs * bs * itemsize + 1)
     flops_one = (np_**3 / 3 + 2 * np_**3 / 3  # chol(P), P^-1
                  + 2 * np_ * np_ * nd + 2 * nd * nd * np_  # E, D + B E
                  + nd**3 / 3 + 2 * nd**3 / 3  # chol(Dt), W
                  + 2 * np_ * nd * nd + 2 * np_ * np_ * nd)  # E W, TL
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = m * flops_one / H100_F32_FLOPS
+    t_ops = m * flops_one / (H100_F64_FLOPS if itemsize == 8 else H100_F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def chol_inverse_bound_ms(m, n):
-    """Least time for m SPD inverses on an H100: 2 m n^2 f32 values moved
-    against m n^3 f32 operations (factor n^3/3, inverse 2 n^3/3)."""
-    t_bytes = m * (2 * n * n * 4 + 1) / H100_BYTES_PER_S
-    t_ops = m * float(n) ** 3 / H100_F32_FLOPS
+def chol_inverse_bound_ms(m, n, itemsize=4):
+    """Least time for m SPD inverses on an H100: 2 m n^2 values moved
+    against m n^3 operations (factor n^3/3, inverse 2 n^3/3), f32 or f64."""
+    t_bytes = m * (2 * n * n * itemsize + 1) / H100_BYTES_PER_S
+    t_ops = m * float(n) ** 3 / (H100_F64_FLOPS if itemsize == 8 else H100_F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -811,7 +842,7 @@ def warmstart_phase(torch, card, launches, dev):
         raise AssertionError(f"warm start: nn_ws convergence {nn_ws:.3f} < cold {cold:.3f} - 0.15")
 
 
-def montecarlo_phase(torch, card, launches, dev):
+def montecarlo_phase(torch, card, launches, dev, readings):
     """Phase 16: monte_carlo_envelope of srbm_lcp (the port's default
     settings) with the native pool and a result log under build/, read back;
     then the foot-position sweep over v_x on the ccc solver (phase 7's
@@ -867,6 +898,7 @@ def montecarlo_phase(torch, card, launches, dev):
     out, wall, _ = run_timed(torch, lambda: sweep_foot_positions(
         ccc, [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5], 3, vx))
     launches["foot_sweep"] = qd_inverse.launches
+    readings["foot_sweep_f32"] = [round(o["value"], 3) for o in out if o["converged"]]
     log(f"[montecarlo] sweep_foot_positions ccc N=41 over v_x {vx.round(3).tolist()}, on {card}: "
         f"converged {sum(o['converged'] for o in out)}/{N_SWEEP}, wall_s {wall:.2f}, qd_inverse "
         f"launches {launches['foot_sweep']}")
@@ -901,17 +933,289 @@ def montecarlo_rank(rank, world, port):
         dist.destroy_process_group()
 
 
-SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo")
+def f64_phase(torch, card, launches, dev, readings):
+    """Phase 17: f64 on the card through the kernel's double instance:
+    phase 12's srbm_lcp solve_batch (16 bench-sampler scenarios, seed 5, the
+    bench path's settings and first deadline) in f64 and in f32, then phase
+    16's ccc foot sweep in f64."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.analysis.foot_positions import sweep_foot_positions
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
+
+    srbm = srbm_lcp_path()[0]
+    q, qd = bench_sampler(5)(N_BACKENDS)
+    conv = {}
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+        dt = DT_PRODUCTION.astype(np.float64 if dtype == torch.float64 else np.float32)
+        solver = LandingSolver(
+            "srbm_lcp", dtype=dtype, guess=srbm.guess, theta_overrides={"dt": dt},
+            config=dataclasses.replace(srbm.config, max_iter=BENCH_FIRST_DEADLINE), device=dev)
+        qd_inverse.launches = 0
+        sol, wall, _ = run_timed(torch, lambda: solver.solve_batch(q, qd))
+        n_launch = qd_inverse.launches
+        conv[name], line = batch_summary(sol, wall)
+        log(f"[f64] srbm_lcp {name} cri B={N_BACKENDS} max_iter {BENCH_FIRST_DEADLINE} on {card}: "
+            f"{line}, qd_inverse launches {n_launch}")
+        check_finite(torch, sol, ("z", "cost", "kkt_error", "constr_viol"), f"srbm_lcp {name}")
+        if n_launch <= 0:
+            raise AssertionError(f"srbm_lcp {name} did not go through the qd_inverse kernel")
+        launches[f"srbm_lcp_{name}"] = n_launch
+    log(f"[f64] srbm_lcp converged by both {int((conv['f64'] & conv['f32']).sum())}, f64 only "
+        f"{int((conv['f64'] & ~conv['f32']).sum())}, f32 only {int((~conv['f64'] & conv['f32']).sum())}")
+
+    ccc_cfg = LandingSolver("ccc", n_knots=41, dtype=torch.float64, device=dev).config
+    ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float64, device=dev,
+                        config=dataclasses.replace(ccc_cfg, max_iter=150))
+    vx = np.linspace(-1.0, 1.0, N_SWEEP)
+    qd_inverse.launches = 0
+    out, wall, _ = run_timed(torch, lambda: sweep_foot_positions(
+        ccc, [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5], 3, vx))
+    launches["foot_sweep_f64"] = qd_inverse.launches
+    got = [round(o["value"], 3) for o in out if o["converged"]]
+    readings["foot_sweep_f64"] = got
+    cpu_f64 = [v for v in vx.round(3).tolist() if abs(abs(v) - 0.714) > 1e-3]
+    log(f"[f64] sweep_foot_positions ccc N=41 f64 on {card}: converged {len(got)}/{N_SWEEP} at v_x "
+        f"{got}, wall_s {wall:.2f}, qd_inverse launches {launches['foot_sweep_f64']}; the CPU's f64 "
+        f"set (all but +-0.714) {cpu_f64}: {'equal' if got == cpu_f64 else 'different'}")
+    if launches["foot_sweep_f64"] <= 0:
+        raise AssertionError("the f64 foot sweep did not go through the qd_inverse kernel")
+    if not all(np.isfinite(o["analysis"].dot_v_p).all() for o in out if o["converged"]):
+        raise AssertionError("the f64 foot sweep gave non-finite touchdown analyses")
 
 
-def side_phase(name, card, qk, qdk, kino_ref):
-    """One of phases 10-16 in a process of its own; returns its kernel
-    launch counts {path: launches}."""
+def dynamics_inputs(seed: int, n: int):
+    """n seeded configurations of the mc3D model (numpy f64): base 0.1-0.7 m
+    up and tilted up to 0.4 rad, joints within 0.3 rad of the home pose,
+    velocities, torques and accelerations."""
+    from landing_controller_tpu_torch.models import get_robot_model
+
+    q_home = get_robot_model("mc3D").q_home
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([rng.uniform(-0.3, 0.3, (n, 3)) + [0.0, 0.0, 0.4],
+                        rng.uniform(-0.4, 0.4, (n, 3)), q_home[6:] + rng.uniform(-0.3, 0.3, (n, 12))],
+                       1)
+    return q, rng.uniform(-1, 1, (n, 18)), rng.uniform(-5, 5, (n, 18)), rng.uniform(-3, 3, (n, 18))
+
+
+def kernels_per_call(torch, fn):
+    """Kernels the card runs for one call of fn (torch.profiler's device-side
+    events, copies and fills left out)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def _rel_err(out, ref):
+    """max |out - ref| over max(1, max |ref|): numpy arrays."""
+    return float(np.abs(out - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def dynamics_phase(torch, card, dev):
+    """Phase 18: the rigid-body dynamics layer at batch scale, f32 and f64:
+    ms and kernel launches per call at B = 65,536, the first 256 lanes held
+    against the port on the CPU in f64 (f64 to 1e-9 relative; f32 to 1e-4 for
+    the evaluations and to 10 eps32 cond(H) for the solves, cond after Jacobi
+    scaling); fd_ab against
+    fd_crb and rnea(fd_ab(tau)) = tau on the card; then joint_pd_sim of 1,024
+    drops for 500 steps in f64, two lanes held against the CPU by the rules
+    stated at SIM_CHECK_STEPS."""
+    from landing_controller_tpu_torch.dynamics import featherstone as F
+    from landing_controller_tpu_torch.models import get_robot_model, get_robot_params
+    from landing_controller_tpu_torch.ops import branch_sparsity as bs
+
+    t0 = time.time()
+    model = get_robot_model("mc3D")
+    lam = model.parent
+    rotors = F.quad3d_rotor_model(model, get_robot_params("mc3D"), 2.5e-5, rotor_mass=0.05)
+    fns = {
+        "fk_feet": lambda q, qd, tau, qdd, H: F.fk_feet(model, q),
+        "mass_matrix": lambda q, qd, tau, qdd, H: F.mass_matrix(model, q)[0],
+        "crba_open": lambda q, qd, tau, qdd, H: F.crba_open(model, q),
+        "rnea": lambda q, qd, tau, qdd, H: F.rnea(model, q, qd, qdd),
+        "fd_ab": lambda q, qd, tau, qdd, H: F.fd_ab(model, q, qd, tau),
+        "fd_crb": lambda q, qd, tau, qdd, H: F.fd_crb(model, q, qd, tau),
+        "h_and_c_rotors": lambda q, qd, tau, qdd, H: torch.cat(
+            [t.flatten(1) for t in F.h_and_c_rotors(model, rotors, q, qd)], 1),
+        "energy_momentum": lambda q, qd, tau, qdd, H: torch.cat(
+            [t.reshape(q.shape[0], -1) for t in F.energy_momentum(model, q, qd).values()], 1),
+        "ltdl": lambda q, qd, tau, qdd, H: torch.cat([t.flatten(1) for t in bs.ltdl(H, lam)], 1),
+        "solve_ltl": lambda q, qd, tau, qdd, H: bs.solve_ltl(bs.ltl(H, lam), lam, tau),
+    }
+    solves = ("fd_ab", "fd_crb", "solve_ltl")
+    q_np, qd_np, tau_np, qdd_np = dynamics_inputs(18, N_DYN)
+    cpu = [torch.as_tensor(a[:N_DYN_CHECK]) for a in (q_np, qd_np, tau_np, qdd_np)]
+    cpu.append(F.crba_open(model, cpu[0]))
+    # the f32 solves are held to 10 eps32 times H's condition number after
+    # Jacobi scaling, D^-1/2 H D^-1/2 with D = diag(H): the one that bounds the
+    # error of a Cholesky solve (van der Sluis), where the unscaled one mostly
+    # measures the spread of the base's mass and the legs' inertias
+    scale = torch.diagonal(cpu[4], dim1=-2, dim2=-1).rsqrt()
+    cond = float(torch.linalg.cond(cpu[4]).max())
+    cond_scaled = float(torch.linalg.cond(scale[..., :, None] * cpu[4] * scale[..., None, :]).max())
+    refs = {name: fn(*cpu).numpy() for name, fn in fns.items()}
+    eps32 = float(np.finfo(np.float32).eps)
+    log(f"[dynamics] B={N_DYN} seeded mc3D configurations; largest condition number of crba_open's "
+        f"H on the first {N_DYN_CHECK} lanes {cond:.3e}, after Jacobi scaling {cond_scaled:.3e}")
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        args = [torch.as_tensor(a, dtype=dtype, device=dev) for a in (q_np, qd_np, tau_np, qdd_np)]
+        args.append(F.crba_open(model, args[0]))
+        for fn_name, fn in fns.items():
+            ms = median_ms(torch, lambda: fn(*args), reps=3, inner=1)
+            n_k = kernels_per_call(torch, lambda: fn(*args))
+            out = fn(*[a[:N_DYN_CHECK] for a in args]).double().cpu().numpy()
+            err = _rel_err(out, refs[fn_name])
+            if name == "f64":
+                tol = 1e-9
+            else:
+                tol = 10 * eps32 * cond_scaled if fn_name in solves else 1e-4
+            full = fn(*args)
+            if not bool(torch.isfinite(full).all()):
+                raise AssertionError(f"dynamics {fn_name} {name}: non-finite values")
+            log(f"[dynamics] {fn_name} {name} B={N_DYN} on {card}: {ms:.3f} ms per call, {n_k} "
+                f"kernels per call, error of the first {N_DYN_CHECK} lanes against the CPU in f64 "
+                f"{err:.3e} (tolerance {tol:.1e})")
+            if not err <= tol:
+                raise AssertionError(f"dynamics {fn_name} {name}: error {err:.3e} > {tol:.1e}")
+        del args
+        torch.cuda.empty_cache()
+
+    q, qd, tau = (torch.as_tensor(a, device=dev) for a in (q_np, qd_np, tau_np))
+    ab, crb = F.fd_ab(model, q, qd, tau), F.fd_crb(model, q, qd, tau)
+    gap = float(((ab - crb).abs().amax(1) / crb.abs().amax(1).clamp(min=1.0)).max())
+    back = F.rnea(model, q, qd, ab)
+    rt = float(((back - tau).abs().amax(1) / tau.abs().amax(1).clamp(min=1.0)).max())
+    log(f"[dynamics] f64 B={N_DYN}: fd_ab against fd_crb {gap:.3e}, rnea(fd_ab(tau)) - tau {rt:.3e} "
+        f"(relative, largest lane; tolerance 1e-8)")
+    if not (gap <= 1e-8 and rt <= 1e-8):
+        raise AssertionError("dynamics: fd_ab, fd_crb and rnea disagree")
+    log(f"[dynamics] the functions at B={N_DYN} and their checks: {time.time() - t0:.1f} s")
+    del q, qd, tau, ab, crb, back
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(181)
+    q0 = np.tile(model.q_home, (N_SIM, 1))
+    q0[:, 2] = rng.uniform(0.09, 0.13, N_SIM)
+    q0[:, 3:6] = rng.uniform(-0.05, 0.05, (N_SIM, 3))
+    qd0 = np.zeros((N_SIM, 18))
+    qd0[:, 2] = rng.uniform(-1.0, 0.0, N_SIM)
+    home = model.q_home.copy()
+    home[2] = 0.0908  # the feet 5 mm into the ground
+    held_q, held_qd = np.stack([home, q0[0]]), np.stack([np.zeros(18), qd0[0]])
+    nudge = 1 + np.arange(SIM_ENSEMBLE)[None, :, None] * 1e-15
+    q_all = np.concatenate([q0, (held_q[:, None] * nudge).reshape(-1, 18)])
+    qd_all = np.concatenate([qd0, np.repeat(held_qd, SIM_ENSEMBLE, 0)])
+    sim = dict(jpos_des=model.q_home[6:], jvel_des=np.zeros(12), kp=1000.0, kd=30.0, dt=1e-4,
+               tau_limit=model.tau_max[:12])
+    q0_d, qd0_d = torch.as_tensor(q_all, device=dev), torch.as_tensor(qd_all, device=dev)
+    n_k = kernels_per_call(torch, lambda: F.joint_pd_sim(model, q0_d, qd0_d, n_steps=1, **sim))
+    (qs, qds, grfs), wall, peak = run_timed(torch, lambda: F.joint_pd_sim(
+        model, q0_d, qd0_d, n_steps=SIM_STEPS, **sim))
+    finite = all(bool(torch.isfinite(t).all()) for t in (qs, qds, grfs))
+    qs, qds, grfs = (t.cpu().numpy() for t in (qs, qds, grfs))
+
+    def contact_share(g):  # share of steps with ground force, per lane
+        return (g[..., 2].sum(-1) > 0).mean(-1)
+
+    tau_pd = 1000.0 * (model.q_home[6:] - qs[:N_SIM, :-1, 6:]) - 30.0 * qds[:N_SIM, :-1, 6:]
+    saturated = float((np.abs(tau_pd) >= model.tau_max[:12]).mean())
+    t_cpu = time.time()
+    ref = [t.numpy() for t in F.joint_pd_sim(model, torch.as_tensor(held_q),
+                                             torch.as_tensor(held_qd), n_steps=SIM_STEPS, **sim)]
+    nudged = [t.numpy() for t in F.joint_pd_sim(model, torch.as_tensor(held_q * (1 + 1e-15)),
+                                                torch.as_tensor(held_qd), n_steps=SIM_CHECK_STEPS,
+                                                **sim)]
+    t_cpu = time.time() - t_cpu
+
+    def per_step(a, b):  # the largest |a - b| of the two lanes at each step
+        return np.abs(a - b).reshape(2, a.shape[1], -1).max(axis=(0, 2))
+
+    ens = [t[N_SIM:].reshape((2, SIM_ENSEMBLE) + t.shape[1:]) for t in (qs, qds, grfs)]
+    gap = [per_step(e[:, 0, :n.shape[1]], r[:, :n.shape[1]]) for e, r, n in zip(ens, ref, nudged)]
+    own = [per_step(n, r[:, :n.shape[1]]) for n, r in zip(nudged, ref)]
+    held = all(bool((g <= 20 * o + 1e-12).all()) for g, o in zip(gap, own))
+    in_range, spread = True, []
+    for name, card_v, cpu_v, floor in (
+            ("share of steps with ground force", contact_share(ens[2]), contact_share(ref[2]),
+             SIM_SPREAD_FLOOR[0]),
+            ("final base height", ens[0][:, :, -1, 2], ref[0][:, -1, 2], SIM_SPREAD_FLOOR[1])):
+        lo, hi = card_v.min(1), card_v.max(1)
+        w = np.maximum(hi - lo, floor)
+        ok = (cpu_v >= lo - w) & (cpu_v <= hi + w)
+        in_range &= bool(ok.all())
+        spread.append(f"{name}: " + "; ".join(
+            f"{lane} card {card_v[i, 0]:.4f}, CPU {cpu_v[i]:.4f}, card nudged [{lo[i]:.4f}, "
+            f"{hi[i]:.4f}]" for i, lane in enumerate(("home pose", "seeded drop"))))
+    log(f"[dynamics] joint_pd_sim f64 B={N_SIM} drops + {2 * SIM_ENSEMBLE} nudged copies of two "
+        f"lanes, {SIM_STEPS} steps of 1e-4 s (kp 1000, kd 30, torque limits) on {card}: wall_s "
+        f"{wall:.2f} ({1e3 * wall / SIM_STEPS:.2f} ms per step, about {n_k} kernels per step), peak "
+        f"{peak:.3f} GB, finite {finite}; the {N_SIM} drops: share of steps with ground force "
+        f"{float(contact_share(grfs[:N_SIM]).mean()):.3f}, final base height p50 "
+        f"{float(np.median(qs[:N_SIM, -1, 2])):.4f} m, share of joint torques at their limit "
+        f"{saturated:.3f}")
+    log(f"[dynamics] joint_pd_sim two lanes (home pose, seeded drop) against the CPU in f64 "
+        f"({t_cpu:.1f} s on the CPU), joint rates at steps 1 / 5 / 10 / {SIM_CHECK_STEPS}: gap "
+        f"{' / '.join(f'{gap[1][k]:.1e}' for k in (1, 5, 10, SIM_CHECK_STEPS))}, the CPU's own "
+        f"change under a 1e-15 nudge "
+        f"{' / '.join(f'{own[1][k]:.1e}' for k in (1, 5, 10, SIM_CHECK_STEPS))}; every step's gap "
+        f"within 20x the own change + 1e-12: {held}")
+    log(f"[dynamics] joint_pd_sim over all {SIM_STEPS} steps, the CPU against {SIM_ENSEMBLE} "
+        f"nudged copies on the card: {' | '.join(spread)}; largest vertical ground force card "
+        f"{float(ens[2][:, 0, :, :, 2].sum(-1).max()):.1f} N, CPU "
+        f"{float(ref[2][..., 2].sum(-1).max()):.1f} N; inside the widened range: {in_range}")
+    if not finite or not held or not in_range:
+        raise AssertionError("joint_pd_sim: non-finite trajectories or a gap to the CPU")
+
+
+def vbl_phase(torch, card, dev, X, U):
+    """Phase 19: the Riccati value function (default weights, f64) along the
+    converged srbm_lcp trajectories of phase 4 (X (n, 21, 12), U (n, 20, 24);
+    the production dt schedule): P finite and symmetric, the terminal P equal
+    to F, two trajectories held against the CPU in f64 to 1e-9 relative."""
+    from landing_controller_tpu_torch.analysis import default_vbl_weights, riccati_value_function
+    from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
+
+    t_star = np.concatenate([[0.0], np.cumsum(DT_PRODUCTION)])
+    Xd, Ud = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (X, U))
+    (P, P_fwd), wall, peak = run_timed(torch, lambda: riccati_value_function(Xd, Ud, t_star))
+    F_, _, _ = default_vbl_weights(torch.float64, dev)
+    scale = float(P.abs().max())
+    sym = float((P - P.transpose(-1, -2)).abs().max()) / max(1.0, scale)
+    finite = bool(torch.isfinite(P).all())
+    # the forward RK4 sweep (the reference's consistency check) grows without
+    # bound over the 0.75 s horizon at this step, in both packages
+    fwd_finite = float(torch.isfinite(P_fwd).flatten(2).all(2).float().mean())
+    terminal = bool((P[:, -1] == F_).all())
+    ref = riccati_value_function(torch.as_tensor(X[:2], dtype=torch.float64),
+                                 torch.as_tensor(U[:2], dtype=torch.float64), t_star)[0]
+    err = _rel_err(P[:2].cpu().numpy(), ref.numpy())
+    zz = P[:, 0, 2, 2].cpu().numpy()
+    log(f"[vbl] riccati_value_function f64 on {len(X)} converged srbm_lcp trajectories of phase 4 "
+        f"(N=21, {P.shape[1]} Riccati steps of 0.022 s) on {card}: wall_s {wall:.2f}, peak "
+        f"{peak:.3f} GB, P finite {finite}, asymmetry {sym:.3e}, terminal P equal to F {terminal}, "
+        f"P(0)[z, z] median {float(np.median(zz)):.4f} range [{zz.min():.4f}, {zz.max():.4f}], "
+        f"share of finite forward-sweep steps {fwd_finite:.3f}; P of two trajectories against the "
+        f"CPU in f64 {err:.3e} (tolerance 1e-9)")
+    if not (finite and terminal and sym <= 1e-10 and err <= 1e-9):
+        raise AssertionError("vbl: the value function fails its checks")
+
+
+SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo",
+               "f64", "dynamics", "vbl")
+
+
+def side_phase(name, card, qk, qdk, kino_ref, vbl_traj):
+    """One of phases 10-19 in a process of its own; returns its kernel
+    launch counts {path: launches} and its readings {name: value} for the
+    checks across phases."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    launches = {}
+    launches, readings = {}, {}
     t0 = time.time()
     if name == "dense":
         dense_path(torch, card, kinodynamic_solver("cuda"), kino_ref, qk, qdk, "cuda")
@@ -922,11 +1226,18 @@ def side_phase(name, card, qk, qdk, kino_ref):
     elif name == "cascade":
         cascade_phase(torch, card, kinodynamic_solver("cuda"), kino_ref, srbm_lcp_path()[0], qk,
                       qdk, launches, "cuda")
+    elif name in ("factory", "warmstart"):
+        {"factory": factory_phase, "warmstart": warmstart_phase}[name](torch, card, launches,
+                                                                     "cuda")
+    elif name == "dynamics":
+        dynamics_phase(torch, card, "cuda")
+    elif name == "vbl":
+        vbl_phase(torch, card, "cuda", *vbl_traj)
     else:
-        {"factory": factory_phase, "warmstart": warmstart_phase,
-         "montecarlo": montecarlo_phase}[name](torch, card, launches, "cuda")
+        {"montecarlo": montecarlo_phase, "f64": f64_phase}[name](torch, card, launches, "cuda",
+                                                                 readings)
     log(f"[{name}] phase done in {time.time() - t0:.1f} s")
-    return launches
+    return launches, readings
 
 
 def free_port() -> int:
@@ -1100,6 +1411,61 @@ def main() -> int:
                      (rec_chol, ("chol_inverse", (48,)))):
         rec["smem_bytes"], rec["blocks_per_sm"] = occupancy[key]
 
+    # the double instances: against the plain version in f64 (on the CPU) and
+    # against the f32 kernel's error at the same shape; timed like the f32 ones
+    def parity64(name, kernel_fn, plain_fn, x_np, label, err32):
+        m = x_np.shape[0]
+        x_np = x_np.astype(np.float64)
+        x_np[3, 0, 0] = -5.0
+        x = torch.as_tensor(x_np, device=dev)
+        out_k, ok_k = kernel_fn(x)
+        out_p, ok_p = plain_fn(x.cpu())
+        torch.cuda.synchronize()
+        if (out_k.dtype != torch.float64 or not torch.equal(ok_k.cpu(), ok_p)
+                or int(ok_p.sum()) != m - 1 or bool(ok_p[3])):
+            raise AssertionError(f"{name} f64 ok flags disagree at {label}")
+        a, b = out_k[ok_k].cpu(), out_p[ok_p]
+        err = float((a - b).abs().max())
+        if not bool(((a - b).abs() <= 1e-10 + 1e-10 * b.abs()).all()) or not err < err32:
+            raise AssertionError(f"{name} f64 kernel disagrees at {label}: {err} (f32 kernel {err32})")
+        if not torch.equal(out_k[ok_k], out_k[ok_k].transpose(1, 2)):
+            raise AssertionError(f"{name} f64 kernel output is not symmetric bit for bit at {label}")
+        log(f"[parity] {name} f64 {label}: max_abs_err {err:.3e} against the plain version in f64 on "
+            f"the CPU (rtol=atol=1e-10; the f32 kernel's {err32:.3e}), ok flags agree ({m - 1}/{m} ok), "
+            f"symmetric bit for bit")
+        return x, err
+
+    qd64_recs = {}
+    for np_, nd, m in ((36, 24, 1280), (48, 36, 5120), (30, 20, 1280)):
+        kernel_fn, plain_fn, _ = qd_pair(np_, nd)
+        label = f"({np_},{nd}) m={m}"
+        S, err = parity64("qd_inverse", kernel_fn, plain_fn, random_qd_blocks(rng, m, np_, nd),
+                          label, qd_recs[(np_, nd, m)]["max_abs_err"])
+        qd64_recs[(np_, nd)] = timed(
+            "qd_inverse f64", kernel_fn, plain_fn, {"torch.linalg.inv": lambda: torch.linalg.inv(S)},
+            S, err, qd_inverse_bound_ms(m, np_, nd, itemsize=8), label)
+    A, err = parity64("chol_inverse", chol_inverse, chol_inverse_ref, random_spd_blocks(rng, 5120, 48),
+                      "n=48 m=5120", chol_recs[5120]["max_abs_err"])
+    A_ok = torch.cat([A[:3], A[4:]])
+    rec_chol64 = timed("chol_inverse f64", chol_inverse, chol_inverse_ref,
+                       {"torch.linalg.inv": lambda: torch.linalg.inv(A_ok),
+                        "cholesky + cholesky_inverse (m=5119)":
+                            lambda: torch.cholesky_inverse(torch.linalg.cholesky(A_ok))},
+                       A, err, chol_inverse_bound_ms(5120, 48, itemsize=8), "n=48 m=5120")
+    for name, sizes, rec in (("qd_inverse", (36, 24), qd64_recs[(36, 24)]),
+                             ("qd_inverse", (48, 36), qd64_recs[(48, 36)]),
+                             ("qd_inverse", (30, 20), qd64_recs[(30, 20)]),
+                             ("chol_inverse", (48,), rec_chol64)):
+        smem = pallas_blocks.library_smem_bytes(name, *sizes, dtype=torch.float64)
+        mirror = pallas_blocks.block_smem_bytes(sum(sizes), torch.float64)
+        if smem != mirror:
+            raise AssertionError(f"{name} {sizes} f64: the library takes {smem} bytes of shared "
+                                 f"memory, its Python mirror says {mirror}")
+        rec["smem_bytes"] = smem
+        rec["blocks_per_sm"] = pallas_blocks.blocks_per_sm(name, *sizes, dtype=torch.float64)
+        log(f"[build] {name} {sizes} f64: {smem} bytes of shared memory per block, "
+            f"{rec['blocks_per_sm']} blocks per SM")
+
     # ---- 4. the srbm_lcp path
     t0 = time.time()
     solver, make_stream = srbm_lcp_path()
@@ -1147,6 +1513,8 @@ def main() -> int:
     conv = stats["converged_mask"]
     check_feasible(torch, solver, torch.as_tensor(stats["z"][conv], device=dev), q_np[conv],
                    qd_np[conv], stats["viol"][conv], "srbm_lcp")
+    lanes = solver.problem.unpack(torch.as_tensor(stats["z"][conv]))
+    vbl_traj = (lanes.X.numpy(), lanes.U.numpy())  # phase 19's trajectories
     # (c) one gentle drop on the card (kernel) and on the CPU (plain versions)
     small = dict(kind="srbm_lcp", n_knots=21, dtype=torch.float32, guess="ballistic",
                  config=IPConfig(max_iter=150, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
@@ -1298,6 +1666,24 @@ def main() -> int:
     for label in ("srbm_lcp", "kinodynamic"):
         check_real_blocks(torch, f"chol_inverse {label}", chol_inverse, chol_inverse_ref,
                           {call: P for (lab, call), P in spd.items() if lab == label})
+    # the same entry point in f64 (the kernel's double instance) on the same
+    # sub-blocks, against the plain version in f64 on the CPU
+    chol_inverse.launches = 0
+    err64 = 0.0
+    for (label, call), P in sorted(spd.items()):
+        Pinv, ok = ops.chol_inverse(P.double())
+        ref, ok_ref = chol_inverse_ref(P.double().cpu())
+        if not (bool(ok.all()) and bool(ok_ref.all())):
+            raise AssertionError(f"chol_inverse f64 rejects an SPD sub-block of {label} call {call}")
+        err64 = max(err64, float(((Pinv.cpu() - ref).abs() / ref.abs().amax((1, 2), keepdim=True))
+                                 .max()))
+    launches["chol_inverse_f64"] = chol_inverse.launches
+    log(f"[chol_inverse] entry point in f64 on the same {n_spd} sub-blocks: "
+        f"{launches['chol_inverse_f64']} kernel launches, all ok, largest error relative to each "
+        f"block's largest entry against the plain version in f64 {err64:.3e} (tolerance 1e-6: real "
+        f"KKT sub-blocks reach condition numbers of 1e6 and more)")
+    if launches["chol_inverse_f64"] != len(spd) or err64 > 1e-6:
+        raise AssertionError("the f64 chol_inverse entry point failed its checks")
 
     # ---- 9. where one batch-iteration's time goes (B=64; the dense path B=32)
     profile_iteration(torch, solver, *bench_sampler(2)(64), "srbm_lcp", card)
@@ -1319,15 +1705,23 @@ def main() -> int:
     if os.path.exists(NN_FACTORY_PATH):
         os.remove(NN_FACTORY_PATH)  # phase 15 waits for this run's network
     pool = multiprocessing.get_context("spawn").Pool(len(SIDE_PHASES))
+    readings = {}
     try:
-        jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref))
+        jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref, vbl_traj))
                 for name in SIDE_PHASES]
         for job in jobs:
             # a worker that dies loses its job: wait no longer than the run allows
-            launches.update(job.get(timeout=max(1.0, SIDE_DEADLINE_S - (time.time() - t_start))))
+            got, read = job.get(timeout=max(1.0, SIDE_DEADLINE_S - (time.time() - t_start)))
+            launches.update(got)
+            readings.update(read)
     finally:
         pool.terminate()
         pool.join()
+    f32_set, f64_set = readings["foot_sweep_f32"], readings["foot_sweep_f64"]
+    log(f"[f64] ccc foot sweep converged: f64 {len(f64_set)}/{N_SWEEP} {f64_set}, f32 (phase 16) "
+        f"{len(f32_set)}/{N_SWEEP} {f32_set}")
+    if len(f64_set) < 5 or len(f64_set) < len(f32_set):
+        raise AssertionError("the f64 foot sweep converges fewer than 5 drops or than the f32 one")
     if torch.cuda.device_count() >= 2:
         torch.multiprocessing.start_processes(montecarlo_rank, args=(2, free_port()), nprocs=2,
                                               start_method="spawn")
@@ -1340,7 +1734,8 @@ def main() -> int:
     # ---- the kernels line, the card line, the result line
     solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
                     "srbm_lcp_cri_backend", "cascade", "replan", "factory", "warmstart",
-                    "montecarlo", "foot_sweep")
+                    "montecarlo", "foot_sweep", "srbm_lcp_f32")
+    f64_paths = ("srbm_lcp_f64", "foot_sweep_f64")
     kernels = [{
         "name": "qd_inverse",
         "route": "cuda",
@@ -1360,6 +1755,25 @@ def main() -> int:
         "launches": launches["chol_inverse"],
         "shape": "n = 48, m = 5120",
         **rec_chol,
+    }, {
+        "name": "qd_inverse_f64",
+        "route": "cuda",
+        "source": "landing_controller_tpu_torch/csrc/qd_inverse.cu",
+        "replaces": "landing_controller_tpu/ops/pallas_blocks.py:111",
+        "launches": sum(launches[p] for p in f64_paths),
+        "launches_by_path": {p: launches[p] for p in f64_paths},
+        "shape": "(np, nd) = (36, 24), m = 1280, float64",
+        **qd64_recs[(36, 24)],
+        "at_48_36_m5120": qd64_recs[(48, 36)],
+        "generic_at_30_20_m1280": qd64_recs[(30, 20)],
+    }, {
+        "name": "chol_inverse_f64",
+        "route": "cuda",
+        "source": "landing_controller_tpu_torch/csrc/chol_inverse.cu",
+        "replaces": "landing_controller_tpu/ops/pallas_blocks.py:137",
+        "launches": launches["chol_inverse_f64"],
+        "shape": "n = 48, m = 5120, float64",
+        **rec_chol64,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

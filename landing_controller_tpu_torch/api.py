@@ -24,6 +24,7 @@ import os
 
 import torch
 
+from ._device import resolve_device
 from ._tree import tree_map
 from .models import get_robot_params
 from .dynamics.legs import leg_torques
@@ -86,14 +87,6 @@ _PROBLEMS = {
 # the JAX structured step's forcing variants select TPU or interpret paths,
 # which the port does not have
 _NOT_PORTED_BACKENDS = ("cri_pallas", "cri_ref", "cri_pallas_interpret")
-
-
-def resolve_device(device) -> torch.device:
-    """The solver's device; "cuda" requires a card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return device
 
 
 class LandingSolver:

@@ -49,11 +49,27 @@
 // which steps 2b and 3 need; steps 2c and 4 read one row at a time, where
 // the lanes of a quarter warp share the first operand's address and take
 // consecutive float4 of the second.
+//
+// The scalar type T is float or double; the float instance is the design
+// above, and the double instance runs the same steps on 8-byte words.  Its
+// four-value accesses are 32 bytes, moved as two 16-byte halves, and the
+// pivots take a correctly rounded 1 / sqrt and division in place of the
+// one-instruction approximations, with the same 1e-30 clamp and ok rule.  It
+// gives up the bank argument: a row of ld doubles spans 2 ld banks, which
+// leaves 8 modulo 16, so the 16-byte halves of 8 consecutive rows fall into
+// 4 distinct groups of 4 banks, a two-way conflict in steps 2b and 3.  Its
+// shared memory is twice the float instance's (smem_bytes<double>): above
+// 48 KB at 84 wide, where block_chol::allow_smem raises the kernel's limit
+// once per device.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifdef __CUDACC__
+#include <atomic>
+#endif
 
 namespace block_chol {
 
@@ -115,20 +131,65 @@ __host__ __device__ constexpr int num_tiles(int bs) {
 __host__ __device__ constexpr int table_entries(int bs) {
   return num_tiles(bs) > kPanel * (kPanel + 1) / 2 ? num_tiles(bs) : kPanel * (kPanel + 1) / 2;
 }
-// the matrix, the kPanel x n scratch, the table
+// the matrix, the kPanel x n scratch (T: float or double), the table
+template <typename T = float>
 __host__ __device__ constexpr size_t smem_bytes(int bs) {
-  return sizeof(float) * (size_t)(padded_size(bs) * row_stride(bs) + kPanel * padded_size(bs)) +
+  return sizeof(T) * (size_t)(padded_size(bs) * row_stride(bs) + kPanel * padded_size(bs)) +
          (size_t)((2 * table_entries(bs) + 15) / 16 * 16);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+// Four consecutive values of a row: float4 for float; for double a 32-byte
+// struct at 16-byte alignment, which the compiler moves as two 16-byte
+// accesses.
+struct alignas(16) dvec4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct Vec4Of;
+template <>
+struct Vec4Of<float> {
+  using type = float4;
+};
+template <>
+struct Vec4Of<double> {
+  using type = dvec4;
+};
+template <typename T>
+using vec4 = typename Vec4Of<T>::type;
 
-// One-instruction reciprocal square root and reciprocal (about 1 ulp; inputs
-// below the normal range count as 0, which the 1e-30 pivot clamp never is).
-__device__ __forceinline__ float fast_rsqrt(float x) {
+__device__ __forceinline__ float4 make_vec4(float x, float y, float z, float w) {
+  return make_float4(x, y, z, w);
+}
+__device__ __forceinline__ dvec4 make_vec4(double x, double y, double z, double w) {
+  return dvec4{x, y, z, w};
+}
+
+template <typename T>
+__device__ __forceinline__ vec4<T> ld4(const T* p) {
+  return *reinterpret_cast<const vec4<T>*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void st4(T* p, vec4<T> v) {
+  *reinterpret_cast<vec4<T>*>(p) = v;
+}
+// a 16-byte aligned row segment of the instance in device memory
+__device__ __forceinline__ float4 ld4_global(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ dvec4 ld4_global(const double* p) { return ld4(p); }
+
+__device__ __forceinline__ float madd(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+
+// Reciprocal square root and reciprocal of a pivot.  float: one instruction
+// each (about 1 ulp; inputs below the normal range count as 0, which the
+// 1e-30 pivot clamp never is).  double: correctly rounded square root and
+// division, no approximate instruction.
+__device__ __forceinline__ float pivot_rsqrt(float x) {
 #ifdef __CUDACC__
   float y;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -137,7 +198,7 @@ __device__ __forceinline__ float fast_rsqrt(float x) {
   return 1.0f / sqrtf(x);
 #endif
 }
-__device__ __forceinline__ float fast_rcp(float x) {
+__device__ __forceinline__ float pivot_rcp(float x) {
 #ifdef __CUDACC__
   float y;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -146,18 +207,22 @@ __device__ __forceinline__ float fast_rcp(float x) {
   return 1.0f / x;
 #endif
 }
+__device__ __forceinline__ double pivot_rsqrt(double x) { return 1.0 / sqrt(x); }
+__device__ __forceinline__ double pivot_rcp(double x) { return 1.0 / x; }
 
 // acc (+/-)= a b' for a 4x4 register tile
-__device__ __forceinline__ void outer_add(float (&acc)[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
+template <typename T>
+__device__ __forceinline__ void outer_add(T (&acc)[4][4], vec4<T> a, vec4<T> b) {
+  const T av[4] = {a.x, a.y, a.z, a.w};
+  const T bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < 4; ++j) acc[i][j] = madd(av[i], bv[j], acc[i][j]);
 }
-__device__ __forceinline__ void outer_sub(float (&acc)[4][4], float4 a, float4 b) {
-  outer_add(acc, make_float4(-a.x, -a.y, -a.z, -a.w), b);
+template <typename T>
+__device__ __forceinline__ void outer_sub(T (&acc)[4][4], vec4<T> a, vec4<T> b) {
+  outer_add<T>(acc, make_vec4(-a.x, -a.y, -a.z, -a.w), b);
 }
 
 // Step 2a, called by warp 0: the KB x KB diagonal tile at (k0, k0) becomes
@@ -165,46 +230,45 @@ __device__ __forceinline__ void outer_sub(float (&acc)[4][4], float4 a, float4 b
 // bad (the same values in every lane).  Every lane takes the tile's lower
 // triangle into registers and factors it alone, so no step of the pivot chain
 // waits for a shuffle; lane c then solves for column c of the inverse.
-template <int KB>
-__device__ __forceinline__ void diag_tile(float* A, int ld, int k0, int np, float& min_piv,
-                                          int& bad) {
+template <int KB, typename T>
+__device__ __forceinline__ void diag_tile(T* A, int ld, int k0, int np, T& min_piv, int& bad) {
   const int lane = threadIdx.x & 31;
-  float a[KB][KB];  // the lower triangle: a[i][k], k <= i
+  T a[KB][KB];  // the lower triangle: a[i][k], k <= i
 #pragma unroll
   for (int i = 0; i < KB; ++i)
 #pragma unroll
     for (int q = 0; q <= i / 4; ++q) {
-      const float4 v = ld4(A + (k0 + i) * ld + k0 + 4 * q);
+      const vec4<T> v = ld4(A + (k0 + i) * ld + k0 + 4 * q);
       a[i][4 * q] = v.x, a[i][4 * q + 1] = v.y, a[i][4 * q + 2] = v.z, a[i][4 * q + 3] = v.w;
     }
-  float rinv[KB];  // 1 / L_jj
+  T rinv[KB];  // 1 / L_jj
 #pragma unroll
   for (int j = 0; j < KB; ++j) {
-    const float sg = (k0 + j < np) ? 1.0f : -1.0f;
-    const float d = sg * a[j][j];
+    const T sg = (k0 + j < np) ? T(1) : T(-1);
+    const T d = sg * a[j][j];
     if (!isfinite(d)) bad = 1;
-    min_piv = fminf(min_piv, d);
-    const float s = fast_rsqrt(fmaxf(d, 1e-30f));
-    rinv[j] = fast_rcp(d * s);
-    const float ss = sg * s;
+    min_piv = vmin(min_piv, d);
+    const T s = pivot_rsqrt(vmax(d, T(1e-30)));
+    rinv[j] = pivot_rcp(d * s);
+    const T ss = sg * s;
 #pragma unroll
     for (int i = j; i < KB; ++i) a[i][j] *= ss;  // L[i][j]
 #pragma unroll
     for (int i = j + 1; i < KB; ++i) {
-      const float nl = -sg * a[i][j];
+      const T nl = -sg * a[i][j];
 #pragma unroll
-      for (int k = j + 1; k <= i; ++k) a[i][k] = fmaf(nl, a[k][j], a[i][k]);
+      for (int k = j + 1; k <= i; ++k) a[i][k] = madd(nl, a[k][j], a[i][k]);
     }
   }
   // lane c solves L x = e_c: column c of X = L^-1
   const int c = lane % KB;  // lanes >= KB repeat columns and store nothing
-  float x[KB];
+  T x[KB];
 #pragma unroll
   for (int i = 0; i < KB; ++i) {
-    float acc = (i == c) ? 1.0f : 0.0f;
+    T acc = (i == c) ? T(1) : T(0);
 #pragma unroll
-    for (int k = 0; k < i; ++k) acc = fmaf(-a[i][k], x[k], acc);
-    x[i] = (i < c) ? 0.0f : acc * rinv[i];
+    for (int k = 0; k < i; ++k) acc = madd(-a[i][k], x[k], acc);
+    x[i] = (i < c) ? T(0) : acc * rinv[i];
   }
   __syncwarp();  // every lane has read the tile before any lane overwrites it
   if (lane < KB) {
@@ -216,17 +280,17 @@ __device__ __forceinline__ void diag_tile(float* A, int ld, int k0, int np, floa
 // Step 2c for the next diagonal tile alone, called by warp 0: the lower
 // triangle of the KB x KB tile at (r0, r0) takes A -= L21 J L21', one element
 // per lane and turn (tri[e] is also the e-th element of a lower triangle).
-template <int KB>
-__device__ __forceinline__ void diag_update(float* A, const float* Lt, const uchar2* tri, int ld,
-                                            int n, int k0, int r0, int np) {
+template <int KB, typename T>
+__device__ __forceinline__ void diag_update(T* A, const T* Lt, const uchar2* tri, int ld, int n,
+                                            int k0, int r0, int np) {
   for (int e = threadIdx.x & 31; e < KB * (KB + 1) / 2; e += 32) {
     const uchar2 ij = tri[e];
-    const float* li = Lt + r0 + ij.x;
-    const float* lj = Lt + r0 + ij.y;
-    float acc = 0.0f;
+    const T* li = Lt + r0 + ij.x;
+    const T* lj = Lt + r0 + ij.y;
+    T acc = T(0);
 #pragma unroll
     for (int c = 0; c < kPanel; ++c) {
-      const float p = li[c * n] * lj[c * n];
+      const T p = li[c * n] * lj[c * n];
       acc += (k0 + c < np) ? p : -p;
     }
     A[(r0 + ij.x) * ld + r0 + ij.y] -= acc;
@@ -235,69 +299,69 @@ __device__ __forceinline__ void diag_update(float* A, const float* Lt, const uch
 
 // Step 2b: for every row r >= k0 + KB, L21[r] = A21[r] X' J into
 // Lt[c * n + r] and T21[r] = L21[r] X in the place of A21[r].
-template <int KB>
-__device__ __forceinline__ void panel_solve(float* A, float* Lt, int ld, int n, int k0, int np) {
+template <int KB, typename T>
+__device__ __forceinline__ void panel_solve(T* A, T* Lt, int ld, int n, int k0, int np) {
   const int r_first = k0 + KB + threadIdx.x;
   if (r_first >= n) return;
-  float X[KB][KB];
+  T X[KB][KB];
 #pragma unroll
   for (int c = 0; c < KB; ++c)
 #pragma unroll
     for (int q = 0; q < KB / 4; ++q) {
-      const float4 v = ld4(A + (k0 + c) * ld + k0 + 4 * q);
+      const vec4<T> v = ld4(A + (k0 + c) * ld + k0 + 4 * q);
       X[c][4 * q] = v.x, X[c][4 * q + 1] = v.y, X[c][4 * q + 2] = v.z, X[c][4 * q + 3] = v.w;
     }
   for (int r = r_first; r < n; r += kThreads) {
-    float av[KB], l[KB], t[KB];
+    T av[KB], l[KB], t[KB];
 #pragma unroll
     for (int q = 0; q < KB / 4; ++q) {
-      const float4 v = ld4(A + r * ld + k0 + 4 * q);
+      const vec4<T> v = ld4(A + r * ld + k0 + 4 * q);
       av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z, av[4 * q + 3] = v.w;
     }
 #pragma unroll
     for (int c = 0; c < KB; ++c) {
-      float acc = 0.0f;
+      T acc = T(0);
 #pragma unroll
-      for (int k = 0; k <= c; ++k) acc = fmaf(av[k], X[c][k], acc);
+      for (int k = 0; k <= c; ++k) acc = madd(av[k], X[c][k], acc);
       l[c] = (k0 + c < np) ? acc : -acc;
       Lt[c * n + r] = l[c];
     }
 #pragma unroll
     for (int c = 0; c < KB; ++c) {
-      float acc = 0.0f;
+      T acc = T(0);
 #pragma unroll
-      for (int k = c; k < KB; ++k) acc = fmaf(l[k], X[k][c], acc);
+      for (int k = c; k < KB; ++k) acc = madd(l[k], X[k][c], acc);
       t[c] = acc;
     }
 #pragma unroll
     for (int q = 0; q < KB / 4; ++q)
-      st4(A + r * ld + k0 + 4 * q, make_float4(t[4 * q], t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]));
+      st4(A + r * ld + k0 + 4 * q, make_vec4(t[4 * q], t[4 * q + 1], t[4 * q + 2], t[4 * q + 3]));
   }
 }
 
 // Step 2c: A22 -= L21 J L21' on the lower triangle from row r0 = k0 + KB,
 // the tiles t_first, t_first + t_step, ... of that triangle.
-template <int KB>
-__device__ __forceinline__ void trailing_update(float* A, const float* Lt, const uchar2* tri, int ld,
-                                                int n, int k0, int np, int t_first, int t_step) {
+template <int KB, typename T>
+__device__ __forceinline__ void trailing_update(T* A, const T* Lt, const uchar2* tri, int ld, int n,
+                                                int k0, int np, int t_first, int t_step) {
   const int t0 = (k0 + KB) / 4;
   const int nt = n / 4 - t0;
   const int count = nt * (nt + 1) / 2;
   for (int t = t_first; t < count; t += t_step) {
     const uchar2 ij = tri[t];
     const int i0 = 4 * (t0 + ij.x), j0 = 4 * (t0 + ij.y);
-    float acc[4][4] = {};
+    T acc[4][4] = {};
 #pragma unroll
     for (int c = 0; c < KB; ++c) {
-      const float4 a = ld4(Lt + c * n + i0);
-      const float4 b = ld4(Lt + c * n + j0);
-      if (k0 + c < np) outer_add(acc, a, b);
-      else outer_sub(acc, a, b);
+      const vec4<T> a = ld4(Lt + c * n + i0);
+      const vec4<T> b = ld4(Lt + c * n + j0);
+      if (k0 + c < np) outer_add<T>(acc, a, b);
+      else outer_sub<T>(acc, a, b);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float* p = A + (i0 + i) * ld + j0;
-      float4 v = ld4(p);
+      T* p = A + (i0 + i) * ld + j0;
+      vec4<T> v = ld4(p);
       v.x -= acc[i][0], v.y -= acc[i][1], v.z -= acc[i][2], v.w -= acc[i][3];
       st4(p, v);
     }
@@ -308,13 +372,12 @@ __device__ __forceinline__ void trailing_update(float* A, const float* Lt, const
 // *ok.  BS_T > 0 fixes bs = BS_T and np = NP_T at compile time; BS_T = 0
 // takes them at run time.  np: the number of leading positive columns (at
 // least the padded size for a positive definite matrix).  Called by every
-// thread of a block of kThreads threads with smem_bytes(bs) of 16-byte
+// thread of a block of kThreads threads with smem_bytes<T>(bs) of 16-byte
 // aligned shared memory.
-template <int BS_T, int NP_T>
-__device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
-                                              float* __restrict__ out,
+template <int BS_T, int NP_T, typename T>
+__device__ __forceinline__ void inverse_block(const T* __restrict__ S_g, T* __restrict__ out,
                                               unsigned char* __restrict__ ok, int bs_rt,
-                                              int np_rt, float* smem) {
+                                              int np_rt, T* smem) {
   const int bs = BS_T ? BS_T : bs_rt;
   const int np = BS_T ? NP_T : np_rt;
   const int n = padded_size(bs);
@@ -328,23 +391,22 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
 #ifdef BLOCK_CHOL_CLOCKS
   long long stamp_ = clock64();
 #endif
-  float* A = smem;
-  float* Lt = A + n * ld;
+  T* A = smem;
+  T* Lt = A + n * ld;
   uchar2* tri = reinterpret_cast<uchar2*>(Lt + kPanel * n);
 
   // ---- 1. load; table: entry t is the t-th (row, column) of a lower
   // triangle counted row by row, the same for every triangle size
   if (bs % 4 == 0) {
     const int q = bs / 4;
-    const float4* src = reinterpret_cast<const float4*>(S_g);
     for (int e = tid; e < bs * q; e += kThreads) {
       const int r = e / q, c = e - r * q;
-      st4(A + r * ld + 4 * c, __ldg(src + e));
+      st4(A + r * ld + 4 * c, ld4_global(S_g + 4 * e));
     }
   } else {
     for (int e = tid; e < n * n; e += kThreads) {
       const int r = e / n, c = e - r * n;
-      float v = (r == c) ? ((r < np) ? 1.0f : -1.0f) : 0.0f;  // identity padding
+      T v = (r == c) ? ((r < np) ? T(1) : T(-1)) : T(0);  // identity padding
       if (r < bs && c < bs) v = S_g[r * bs + c];
       A[r * ld + c] = v;
     }
@@ -363,7 +425,7 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
   // step c it updates only the next diagonal tile (which the first three 4x4
   // tiles of the trailing triangle cover; the other warps start at the
   // fourth), then factors and inverts it while they update the rest.
-  float min_piv = INFINITY;
+  T min_piv = INFINITY;
   int bad = 0;
   const bool warp0 = tid < 32;
   if (warp0) {
@@ -398,26 +460,26 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
   }
 
   // ---- 3. M = L^-1: M21 = -M22 T21, panels from the last to the first.
-  // Row i of M22 ends at column i; the float4 that holds it ends inside the
+  // Row i of M22 ends at column i; the four values that hold it end inside the
   // diagonal tile, where step 2a stored zeros above the diagonal.
   const int k_last = (n - 1) / kPanel * kPanel;
   for (int k0 = k_last - kPanel; k0 >= 0; k0 -= kPanel) {
     const int r0 = k0 + kPanel;
     const int count = 2 * (n - r0);
-    float4 res[kStrips];
+    vec4<T> res[kStrips];
 #pragma unroll
     for (int it = 0; it < kStrips; ++it) {
       const int e = tid + it * kThreads;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vec4<T> acc = make_vec4(T(0), T(0), T(0), T(0));
       if (e < count) {
         const int i = r0 + (e >> 1);
-        const float* tcol = A + k0 + 4 * (e & 1);
-        const float* mrow = A + i * ld;
+        const T* tcol = A + k0 + 4 * (e & 1);
+        const T* mrow = A + i * ld;
 #pragma unroll 2
         for (int k = r0; k <= i; k += 4) {
-          const float4 m = ld4(mrow + k);
-          const float4 t0 = ld4(tcol + k * ld), t1 = ld4(tcol + (k + 1) * ld);
-          const float4 t2 = ld4(tcol + (k + 2) * ld), t3 = ld4(tcol + (k + 3) * ld);
+          const vec4<T> m = ld4(mrow + k);
+          const vec4<T> t0 = ld4(tcol + k * ld), t1 = ld4(tcol + (k + 1) * ld);
+          const vec4<T> t2 = ld4(tcol + (k + 2) * ld), t3 = ld4(tcol + (k + 3) * ld);
           acc.x -= m.x * t0.x + m.y * t1.x + m.z * t2.x + m.w * t3.x;
           acc.y -= m.x * t0.y + m.y * t1.y + m.z * t2.y + m.w * t3.y;
           acc.z -= m.x * t0.z + m.y * t1.z + m.z * t2.z + m.w * t3.z;
@@ -444,12 +506,12 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
   for (int t = tid; t < nt * (nt + 1) / 2; t += kThreads) {
     const uchar2 ij = tri[t];
     const int i0 = 4 * ij.x, j0 = 4 * ij.y;  // i0 >= j0
-    float acc[4][4] = {};
+    T acc[4][4] = {};
     const int k_mid = i0 > k_neg ? i0 : k_neg;
 #pragma unroll 4
-    for (int k = i0; k < k_mid; ++k) outer_add(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
+    for (int k = i0; k < k_mid; ++k) outer_add<T>(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
 #pragma unroll 4
-    for (int k = k_mid; k < n; ++k) outer_sub(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
+    for (int k = k_mid; k < n; ++k) outer_sub<T>(acc, ld4(A + k * ld + i0), ld4(A + k * ld + j0));
     if (i0 == j0) {  // one value for both sides of the diagonal
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -459,11 +521,11 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
     if (bs % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        st4(out + (i0 + i) * bs + j0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        st4(out + (i0 + i) * bs + j0, make_vec4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
       if (i0 != j0) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          st4(out + (j0 + j) * bs + i0, make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]));
+          st4(out + (j0 + j) * bs + i0, make_vec4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]));
       }
     } else {
 #pragma unroll
@@ -477,7 +539,56 @@ __device__ __forceinline__ void inverse_block(const float* __restrict__ S_g,
     }
   }
   BLOCK_CHOL_STAMP(12);  // product and stores
-  if (tid == 0) *ok = (!bad && min_piv > 0.0f) ? 1 : 0;
+  if (tid == 0) *ok = (!bad && min_piv > T(0)) ? 1 : 0;
 }
+
+#ifdef __CUDACC__
+// Host side of the launchers in qd_inverse.cu and chol_inverse.cu, for one
+// kernel instance `kernel` whose scalar type is T.
+
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take the shared memory of the widest block,
+// smem_bytes<T>(kMaxBlock), where that is above the default 48 KB (the
+// double instances): set at the first call on each device and remembered.
+template <typename T, auto kernel>
+cudaError_t allow_smem() {
+  constexpr size_t kMax = smem_bytes<T>(kMaxBlock);
+  if constexpr (kMax <= 48 * 1024) {
+    return cudaSuccess;
+  } else {
+    static std::atomic<bool> raised[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (raised[dev].load()) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMax);
+    if (err == cudaSuccess) raised[dev].store(true);
+    return err;
+  }
+}
+
+// Blocks of `kernel` that one SM holds at a time with `smem` bytes each, or
+// the negated cudaError_t.
+template <typename T, auto kernel>
+int blocks_per_sm(size_t smem) {
+  cudaError_t err = allow_smem<T, kernel>();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Launches `kernel` on m blocks of kThreads threads with `smem` bytes each;
+// returns the cudaError_t of the launch.
+template <typename T, auto kernel, typename... Args>
+int launch(int m, size_t smem, void* stream, Args... args) {
+  cudaError_t err = allow_smem<T, kernel>();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<m, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
 
 }  // namespace block_chol

@@ -24,7 +24,8 @@
 // Shared memory holds A once (plus an 8 x n scratch): 11.7 KB at n = 48; 7
 // blocks of 128 threads stay on an SM, limited by their registers.
 // n = 36 and n = 48 are compile-time instances; any other n up to 84 goes
-// through the instance with a run-time size.
+// through the instance with a run-time size.  Each is built for f32 and for
+// f64 (twice the shared memory, 23.2 KB at n = 48; twice the byte bound).
 //
 // Plain C interface (bound from Python with ctypes): the wrapper passes
 // device pointers and the CUDA stream, and raises on a nonzero return.
@@ -35,9 +36,9 @@
 
 namespace {
 
-template <int N_T>
+template <typename T, int N_T>
 __global__ void __launch_bounds__(block_chol::kThreads, block_chol::kMinBlocks)
-    chol_inverse_kernel(const float* __restrict__ A_all, float* __restrict__ out_all,
+    chol_inverse_kernel(const T* __restrict__ A_all, T* __restrict__ out_all,
                         unsigned char* __restrict__ ok_all, int n_rt) {
   extern __shared__ float4 smem4[];
   const int n = N_T ? N_T : n_rt;
@@ -45,38 +46,50 @@ __global__ void __launch_bounds__(block_chol::kThreads, block_chol::kMinBlocks)
   // every column positive: np covers the padding too
   block_chol::inverse_block<N_T, block_chol::padded_size(N_T)>(
       A_all + offset, out_all + offset, ok_all + blockIdx.x, n, block_chol::padded_size(n),
-      reinterpret_cast<float*>(smem4));
+      reinterpret_cast<T*>(smem4));
 }
 
-using Kernel = void (*)(const float*, float*, unsigned char*, int);
+template <typename T>
+int blocks_per_sm(int n) {
+  const size_t smem = block_chol::smem_bytes<T>(n);
+  if (n == 36) return block_chol::blocks_per_sm<T, chol_inverse_kernel<T, 36>>(smem);
+  if (n == 48) return block_chol::blocks_per_sm<T, chol_inverse_kernel<T, 48>>(smem);
+  return block_chol::blocks_per_sm<T, chol_inverse_kernel<T, 0>>(smem);
+}
 
-Kernel select_kernel(int n) {
-  if (n == 36) return chol_inverse_kernel<36>;
-  if (n == 48) return chol_inverse_kernel<48>;
-  return chol_inverse_kernel<0>;
+template <typename T>
+int launch(const T* A, T* out, unsigned char* ok, int m, int n, void* stream) {
+  if (m <= 0) return 0;
+  if (n < 1 || n > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
+  const size_t smem = block_chol::smem_bytes<T>(n);
+  if (n == 36)
+    return block_chol::launch<T, chol_inverse_kernel<T, 36>>(
+        m, smem, stream, A, out, ok, n);
+  if (n == 48)
+    return block_chol::launch<T, chol_inverse_kernel<T, 48>>(
+        m, smem, stream, A, out, ok, n);
+  return block_chol::launch<T, chol_inverse_kernel<T, 0>>(m, smem, stream, A, out, ok, n);
 }
 
 }  // namespace
 
-extern "C" size_t chol_inverse_smem_bytes(int n) { return block_chol::smem_bytes(n); }
+// Dynamic shared memory of one block of the f32 / f64 instance for n.
+extern "C" size_t chol_inverse_smem_bytes(int n) { return block_chol::smem_bytes<float>(n); }
+extern "C" size_t chol_inverse_smem_bytes_f64(int n) { return block_chol::smem_bytes<double>(n); }
 
 // Blocks of the instance for n that one SM holds at a time, or the negated
 // cudaError_t.
-extern "C" int chol_inverse_blocks_per_sm(int n) {
-  int blocks = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, select_kernel(n), block_chol::kThreads, chol_inverse_smem_bytes(n));
-  return err == cudaSuccess ? blocks : -(int)err;
-}
+extern "C" int chol_inverse_blocks_per_sm(int n) { return blocks_per_sm<float>(n); }
+extern "C" int chol_inverse_blocks_per_sm_f64(int n) { return blocks_per_sm<double>(n); }
 
-// A: (m, n, n) f32, out: (m, n, n) f32, ok: (m,) bool; all on the device, A
-// and out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
-// success).
+// A: (m, n, n), out: (m, n, n), both f32 (f64 for the _f64 entry), ok: (m,)
+// bool; all on the device, A and out 16-byte aligned.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int chol_inverse_launch(const float* A, float* out, unsigned char* ok, int m, int n,
                                    void* stream) {
-  if (m <= 0) return 0;
-  if (n < 1 || n > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
-  select_kernel(n)<<<m, block_chol::kThreads, chol_inverse_smem_bytes(n), (cudaStream_t)stream>>>(
-      A, out, ok, n);
-  return (int)cudaGetLastError();
+  return launch<float>(A, out, ok, m, n, stream);
+}
+extern "C" int chol_inverse_launch_f64(const double* A, double* out, unsigned char* ok, int m,
+                                       int n, void* stream) {
+  return launch<double>(A, out, ok, m, n, stream);
 }

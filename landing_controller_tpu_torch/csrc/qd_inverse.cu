@@ -29,7 +29,11 @@
 // limited by their 72 registers a thread.  The sizes the solver paths run, (36,
 // 24), (48, 36) and (36, 40), are compile-time instances; any other size up
 // to 84 wide goes through the instance with run-time sizes (scalar loads and
-// stores where the width is no multiple of 4).
+// stores where the width is no multiple of 4).  Each instance is built for
+// f32 and for f64 (the same steps on 8-byte words, with twice the shared
+// memory: 32.9 KB at (36, 24), 62.3 KB at (48, 36), above the default 48 KB
+// limit, which block_chol::allow_smem raises once per device).  In f64 an instance
+// reads and writes 16 bs^2 bytes, so its byte bound is twice the f32 one.
 //
 // Plain C interface (bound from Python with ctypes): the wrapper passes
 // device pointers and the CUDA stream, and raises on a nonzero return.
@@ -40,52 +44,76 @@
 
 namespace {
 
-template <int NP_T, int ND_T>
+template <typename T, int NP_T, int ND_T>
 __global__ void __launch_bounds__(block_chol::kThreads, block_chol::kMinBlocks)
-    qd_inverse_kernel(const float* __restrict__ S_all, float* __restrict__ out_all,
+    qd_inverse_kernel(const T* __restrict__ S_all, T* __restrict__ out_all,
                       unsigned char* __restrict__ ok_all, int np_, int nd) {
   extern __shared__ float4 smem4[];
   const int bs = (NP_T + ND_T) ? NP_T + ND_T : np_ + nd;
   const size_t offset = (size_t)blockIdx.x * bs * bs;
   block_chol::inverse_block<NP_T + ND_T, NP_T>(S_all + offset, out_all + offset,
                                                ok_all + blockIdx.x, bs, np_,
-                                               reinterpret_cast<float*>(smem4));
+                                               reinterpret_cast<T*>(smem4));
 }
 
-using Kernel = void (*)(const float*, float*, unsigned char*, int, int);
+// The sizes the solver paths run are compile-time instances, any other size
+// up to 84 wide goes to the run-time one.
+template <typename T>
+int blocks_per_sm(int np_, int nd) {
+  const size_t smem = block_chol::smem_bytes<T>(np_ + nd);
+  if (np_ == 36 && nd == 24)
+    return block_chol::blocks_per_sm<T, qd_inverse_kernel<T, 36, 24>>(smem);
+  if (np_ == 48 && nd == 36)
+    return block_chol::blocks_per_sm<T, qd_inverse_kernel<T, 48, 36>>(smem);
+  if (np_ == 36 && nd == 40)
+    return block_chol::blocks_per_sm<T, qd_inverse_kernel<T, 36, 40>>(smem);
+  return block_chol::blocks_per_sm<T, qd_inverse_kernel<T, 0, 0>>(smem);
+}
 
-Kernel select_kernel(int np_, int nd) {
-  if (np_ == 36 && nd == 24) return qd_inverse_kernel<36, 24>;
-  if (np_ == 48 && nd == 36) return qd_inverse_kernel<48, 36>;
-  if (np_ == 36 && nd == 40) return qd_inverse_kernel<36, 40>;
-  return qd_inverse_kernel<0, 0>;
+template <typename T>
+int launch(const T* S, T* out, unsigned char* ok, int m, int np_, int nd, void* stream) {
+  if (m <= 0) return 0;
+  if (np_ < 1 || nd < 0 || np_ + nd > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
+  const size_t smem = block_chol::smem_bytes<T>(np_ + nd);
+  if (np_ == 36 && nd == 24)
+    return block_chol::launch<T, qd_inverse_kernel<T, 36, 24>>(
+        m, smem, stream, S, out, ok, np_, nd);
+  if (np_ == 48 && nd == 36)
+    return block_chol::launch<T, qd_inverse_kernel<T, 48, 36>>(
+        m, smem, stream, S, out, ok, np_, nd);
+  if (np_ == 36 && nd == 40)
+    return block_chol::launch<T, qd_inverse_kernel<T, 36, 40>>(
+        m, smem, stream, S, out, ok, np_, nd);
+  return block_chol::launch<T, qd_inverse_kernel<T, 0, 0>>(m, smem, stream, S, out, ok, np_, nd);
 }
 
 }  // namespace
 
+// Dynamic shared memory of one block of the f32 / f64 instance for (np, nd).
 extern "C" size_t qd_inverse_smem_bytes(int np_, int nd) {
-  return block_chol::smem_bytes(np_ + nd);
+  return block_chol::smem_bytes<float>(np_ + nd);
+}
+extern "C" size_t qd_inverse_smem_bytes_f64(int np_, int nd) {
+  return block_chol::smem_bytes<double>(np_ + nd);
 }
 
 // Blocks of the instance for (np, nd) that one SM holds at a time, or the
 // negated cudaError_t.
-extern "C" int qd_inverse_blocks_per_sm(int np_, int nd) {
-  int blocks = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, select_kernel(np_, nd), block_chol::kThreads, qd_inverse_smem_bytes(np_, nd));
-  return err == cudaSuccess ? blocks : -(int)err;
+extern "C" int qd_inverse_blocks_per_sm(int np_, int nd) { return blocks_per_sm<float>(np_, nd); }
+extern "C" int qd_inverse_blocks_per_sm_f64(int np_, int nd) {
+  return blocks_per_sm<double>(np_, nd);
 }
 
-// S: (m, bs, bs) f32, out: (m, bs, bs) f32, ok: (m,) bool; all on the device,
-// S and out 16-byte aligned.  Returns the cudaError_t of the launch (0 on
-// success).
+// S: (m, bs, bs), out: (m, bs, bs), both f32 (f64 for the _f64 entry),
+// ok: (m,) bool; all on the device, S and out 16-byte aligned.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int qd_inverse_launch(const float* S, float* out, unsigned char* ok, int m, int np_,
                                  int nd, void* stream) {
-  if (m <= 0) return 0;
-  if (np_ < 1 || nd < 0 || np_ + nd > block_chol::kMaxBlock) return (int)cudaErrorInvalidValue;
-  select_kernel(np_, nd)<<<m, block_chol::kThreads, qd_inverse_smem_bytes(np_, nd),
-                           (cudaStream_t)stream>>>(S, out, ok, np_, nd);
-  return (int)cudaGetLastError();
+  return launch<float>(S, out, ok, m, np_, nd, stream);
+}
+extern "C" int qd_inverse_launch_f64(const double* S, double* out, unsigned char* ok, int m,
+                                     int np_, int nd, void* stream) {
+  return launch<double>(S, out, ok, m, np_, nd, stream);
 }
 
 #ifdef BLOCK_CHOL_CLOCKS

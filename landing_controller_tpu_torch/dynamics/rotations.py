@@ -1,5 +1,9 @@
 """Rotation and Euler-rate kinematics (reference conventions).
 
+- ``rx/ry/rz``: 3x3 *coordinate transform* matrices (frame A -> frame B, B
+  rotated by theta about the common axis), the transposes of the usual
+  active rotations (spatial_v2/3D/rx.m, ry.m, rz.m); ``skew`` / ``unskew``
+  (spatial_v2/3D/skew.m, skew_2.m).
 - ``rpy_to_rot_xyz(rpy) = rx(r)' @ ry(p)' @ rz(y)'``: production body-to-world
   rotation (dynamics-utilities/rpyToRotMat_xyz.m:1-2).
 - ``rpy_to_rot_zyx(rpy) = rz(y)' @ ry(p)' @ rx(r)'``: legacy ZYX convention
@@ -9,8 +13,10 @@
 - ``bmat_f`` / ``bmat_f_dot``: Euler rates -> world angular velocity and its
   time derivative (BmatF.m:1-12, BmatF_dot.m:1-16), used by the eeParam NLP.
 
-Every function takes ``rpy`` with any leading dimensions ``(..., 3)`` and
-returns ``(..., 3, 3)``.  Matrices are composed elementwise, with no matmul.
+Every function takes its angles with any leading dimensions (``theta``
+``(...)``, ``rpy`` and ``v`` ``(..., 3)``) and returns ``(..., 3, 3)``
+(``unskew``: ``(..., 3, 3)`` -> ``(..., 3)``).  Matrices are composed
+elementwise, with no matmul.
 """
 
 from __future__ import annotations
@@ -20,6 +26,40 @@ import torch
 
 def _mat(rows):
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rx(theta):
+    """3x3 coordinate rotation about X (spatial_v2/3D/rx.m)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    o, z = torch.ones_like(theta), torch.zeros_like(theta)
+    return _mat([[o, z, z], [z, c, s], [z, -s, c]])
+
+
+def ry(theta):
+    """3x3 coordinate rotation about Y (spatial_v2/3D/ry.m)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    o, z = torch.ones_like(theta), torch.zeros_like(theta)
+    return _mat([[c, z, -s], [z, o, z], [s, z, c]])
+
+
+def rz(theta):
+    """3x3 coordinate rotation about Z (spatial_v2/3D/rz.m)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    o, z = torch.ones_like(theta), torch.zeros_like(theta)
+    return _mat([[c, s, z], [-s, c, z], [z, z, o]])
+
+
+def skew(v):
+    """3-vector -> 3x3 skew-symmetric matrix (spatial_v2/3D/skew.m)."""
+    z = torch.zeros_like(v[..., 0])
+    return _mat([[z, -v[..., 2], v[..., 1]], [v[..., 2], z, -v[..., 0]],
+                 [-v[..., 1], v[..., 0], z]])
+
+
+def unskew(A):
+    """Skew-symmetric component of a 3x3 matrix as a vector (skew_2.m)."""
+    return 0.5 * torch.stack([A[..., 2, 1] - A[..., 1, 2], A[..., 0, 2] - A[..., 2, 0],
+                              A[..., 1, 0] - A[..., 0, 1]], -1)
 
 
 def rpy_to_rot_xyz(rpy):

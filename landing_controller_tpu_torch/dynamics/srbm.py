@@ -11,6 +11,8 @@ frame]; controls u (24): [c(12) world foot positions, f(12) world GRFs]
 
 (landing_optimization.m:116-128).  Functions take any leading dimensions:
 x (..., 12), u (..., 24), mass (...), ib_diag / ib_inv_diag (..., 3).
+Integration is forward Euler with a per-knot dt, as in the defect
+constraints (landing_optimization.m:125-128).
 """
 
 from __future__ import annotations
@@ -28,14 +30,25 @@ def cross(a, b):
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
 
 
+def split_state(x):
+    """x (..., 12) -> (r, rpy, omega_body, v_world), each (..., 3)."""
+    return x[..., 0:3], x[..., 3:6], x[..., 6:9], x[..., 9:12]
+
+
+def split_control(u):
+    """u (..., 24) -> (c (..., 4, 3) world foot positions, f (..., 4, 3) world
+    GRFs)."""
+    return (u[..., :12].reshape(u.shape[:-1] + (4, 3)),
+            u[..., 12:].reshape(u.shape[:-1] + (4, 3)))
+
+
 def _matvec(M, v):
     return (M * v[..., None, :]).sum(-1)
 
 
 def _xdot(x, u, mass, ib_diag, ib_inv_diag, rot):
-    r, rpy, omega, v = x[..., 0:3], x[..., 3:6], x[..., 6:9], x[..., 9:12]
-    c = u[..., :12].reshape(u.shape[:-1] + (4, 3))
-    f = u[..., 12:].reshape(u.shape[:-1] + (4, 3))
+    r, rpy, omega, v = split_state(x)
+    c, f = split_control(u)
     R_b2w = rot(rpy)
     g = torch.tensor([0.0, 0.0, -9.81], dtype=x.dtype, device=x.device)
     v_dot = f.sum(-2) / mass[..., None] + g
@@ -57,3 +70,27 @@ def srbm_xdot_zyx(x, u, mass, ib_diag, ib_inv_diag):
     """SRBM derivative with the legacy ZYX rotation convention
     (generate_landingCtrller_IPOPT_warmstart.m:114-130)."""
     return _xdot(x, u, mass, ib_diag, ib_inv_diag, rpy_to_rot_zyx)
+
+
+def _constants(x, *values):
+    """Numbers or arrays (mass, dt, inertia diagonals) as tensors like x."""
+    return [torch.as_tensor(v, dtype=x.dtype, device=x.device) for v in values]
+
+
+def euler_defect(x_k, x_kp1, u_k, dt_k, mass, ib_diag, ib_inv_diag):
+    """Forward-Euler dynamics defect (..., 12): x_{k+1} - x_k - xdot(x_k, u_k) dt_k,
+    zero on a dynamically consistent trajectory (landing_optimization.m:125-128).
+    dt_k and mass: (...) or numbers; ib_diag, ib_inv_diag: (..., 3)."""
+    dt_k, mass, ib_diag, ib_inv_diag = _constants(x_k, dt_k, mass, ib_diag, ib_inv_diag)
+    return x_kp1 - x_k - srbm_xdot(x_k, u_k, mass, ib_diag, ib_inv_diag) * dt_k[..., None]
+
+
+def rollout(x0, U, dts, mass, ib_diag, ib_inv_diag):
+    """Open-loop forward-Euler rollout: x0 (..., 12), U (..., N-1, 24), dts
+    (..., N-1) -> X (..., N, 12)."""
+    dts, mass, ib_diag, ib_inv_diag = _constants(x0, dts, mass, ib_diag, ib_inv_diag)
+    xs = [x0]
+    for k in range(U.shape[-2]):
+        x = xs[-1]
+        xs.append(x + srbm_xdot(x, U[..., k, :], mass, ib_diag, ib_inv_diag) * dts[..., k, None])
+    return torch.stack(xs, -2)

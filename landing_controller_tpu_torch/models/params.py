@@ -4,8 +4,9 @@ The port's own copy of the mc3D / mcv3D parameter sets of the reference
 registry (dynamics-utilities/get_robot_params.m:50-190).  Only the fields the
 landing problems need are kept: link geometry (with the derived leg link
 lengths of the closed-form kinematics), masses and spatial inertias (for the
-composite-inertia SRBM constants in :mod:`.model`), the SRBM hip locations,
-and the gear ratios and motor constants of the voltage-limit rows.
+18-body model and its SRBM constants in :mod:`.model`), the SRBM hip
+locations, and the gear ratios and motor constants of the voltage-limit
+rows.  ``register_robot`` adds a named set.
 """
 
 from __future__ import annotations
@@ -129,3 +130,9 @@ def get_robot_params(name: str = "mc3D") -> RobotParams:
         return _REGISTRY[name]()
     except KeyError:
         raise KeyError(f"unknown robot '{name}'; available: {sorted(_REGISTRY)}") from None
+
+
+def register_robot(name: str, factory) -> None:
+    """Extend the registry with a named parameter set: ``factory()`` returns
+    its :class:`RobotParams`."""
+    _REGISTRY[name] = factory

@@ -10,7 +10,7 @@ and returns a per-instance inertia flag ``ok``.  It replaces the Pallas TPU
 kernel ``_qd_inverse_kernel`` (landing_controller_tpu/ops/pallas_blocks.py:111).
 
 - On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/qd_inverse.cu`` (f32 only), or raises.  The kernel runs the same
+  ``csrc/qd_inverse.cu`` (f32 or f64), or raises.  The kernel runs the same
   scheme as one signed Cholesky S = L J L' by panels (``csrc/block_chol.cuh``)
   and returns a result that is symmetric bit for bit.  Its ``ok`` follows the
   TPU kernel: ok = min(pivots) > 0, a non-finite pivot fails, and every output
@@ -25,15 +25,18 @@ kernel ``_qd_inverse_kernel`` (landing_controller_tpu/ops/pallas_blocks.py:111).
 (m, n, n) by a Cholesky factorization and returns ``(Ainv, ok)``.  It
 replaces the Pallas TPU kernel ``_chol_inverse_kernel``
 (landing_controller_tpu/ops/pallas_blocks.py:137), with the same split: a
-CUDA tensor goes to the kernel in ``csrc/chol_inverse.cu`` (f32, n up to 84)
-or raises, and follows the TPU kernel's pivot rule; a CPU tensor goes to the
+CUDA tensor goes to the kernel in ``csrc/chol_inverse.cu`` (f32 or f64, n up
+to 84) or raises, and follows the TPU kernel's pivot rule; a CPU tensor goes to the
 plain version :func:`chol_inverse_ref` (NaN where the factorization fails).
 
 ``qd_inverse.launches`` and ``chol_inverse.launches`` count kernel launches
 (CPU calls do not count).  ``qd_inverse_smem_bytes`` / ``chol_inverse_smem_bytes``
 mirror the kernels' shared-memory layout, ``library_smem_bytes`` reads the
 same figure from the built library, and ``blocks_per_sm`` asks the card how
-many blocks of a kernel instance one SM holds.
+many blocks of a kernel instance one SM holds; each takes the dtype (f32 by
+default, f64: twice the bytes).  Every kernel instance exists for f32 and
+f64: a float64 tensor on the card goes through the kernel too, never to the
+plain version.
 """
 
 from __future__ import annotations
@@ -66,22 +69,23 @@ def row_stride(bs: int) -> int:
     return n + 4 if n % 8 == 0 else n
 
 
-def block_smem_bytes(bs: int) -> int:
+def block_smem_bytes(bs: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of one kernel block for a bs-wide matrix (the
-    mirror of ``block_chol::smem_bytes``): the matrix, a PANEL x n scratch
-    and a table of lower-triangle positions (two bytes for each 4x4 tile, and
-    at least for each element of a diagonal tile's lower triangle)."""
+    mirror of ``block_chol::smem_bytes<T>``): the matrix, a PANEL x n scratch
+    (values of ``dtype``) and a table of lower-triangle positions (two bytes
+    for each 4x4 tile, and at least for each element of a diagonal tile's
+    lower triangle)."""
     n = padded_size(bs)
     entries = max((n // 4) * (n // 4 + 1) // 2, PANEL * (PANEL + 1) // 2)
-    return 4 * (n * row_stride(bs) + PANEL * n) + (2 * entries + 15) // 16 * 16
+    return dtype.itemsize * (n * row_stride(bs) + PANEL * n) + (2 * entries + 15) // 16 * 16
 
 
-def qd_inverse_smem_bytes(np_: int, nd: int) -> int:
-    return block_smem_bytes(np_ + nd)
+def qd_inverse_smem_bytes(np_: int, nd: int, dtype=torch.float32) -> int:
+    return block_smem_bytes(np_ + nd, dtype)
 
 
-def chol_inverse_smem_bytes(n: int) -> int:
-    return block_smem_bytes(n)
+def chol_inverse_smem_bytes(n: int, dtype=torch.float32) -> int:
+    return block_smem_bytes(n, dtype)
 
 
 def qd_inverse_ref(S, np_: int, nd: int):
@@ -115,6 +119,10 @@ def qd_inverse_ref(S, np_: int, nd: int):
     return Sinv, ok_p & ok_d
 
 
+# the dtypes the kernels take, and the suffix of their C entry points
+_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
+
+
 def _aligned(x):
     """x contiguous and 16-byte aligned (the kernels' float4 accesses)."""
     x = x.contiguous()
@@ -145,7 +153,7 @@ def _launch(name: str, x, *sizes):
     m = x.shape[0]
     out = torch.empty_like(x)
     ok = torch.empty(m, dtype=torch.bool, device=x.device)
-    fn = _function(name, f"{name}_launch", len(sizes), launch=True)
+    fn = _function(name, f"{name}_launch{_SUFFIX[x.dtype]}", len(sizes), launch=True)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), out.data_ptr(), ok.data_ptr(), m, *sizes, stream)
     if rc != 0:
@@ -153,26 +161,29 @@ def _launch(name: str, x, *sizes):
     return out, ok
 
 
-def blocks_per_sm(name: str, *sizes) -> int:
+def blocks_per_sm(name: str, *sizes, dtype=torch.float32) -> int:
     """Thread blocks of the kernel instance for ``sizes`` ((np, nd) for
-    "qd_inverse", (n,) for "chol_inverse") that one SM holds at a time."""
-    blocks = _function(name, f"{name}_blocks_per_sm", len(sizes), launch=False)(*sizes)
+    "qd_inverse", (n,) for "chol_inverse") and ``dtype`` that one SM holds at
+    a time."""
+    symbol = f"{name}_blocks_per_sm{_SUFFIX[dtype]}"
+    blocks = _function(name, symbol, len(sizes), launch=False)(*sizes)
     if blocks < 0:
         raise RuntimeError(f"{name} occupancy query failed: cudaError {-blocks}")
     return blocks
 
 
-def library_smem_bytes(name: str, *sizes) -> int:
+def library_smem_bytes(name: str, *sizes, dtype=torch.float32) -> int:
     """Dynamic shared memory that the built library gives one block of the
-    kernel instance for ``sizes``: the figure that sizes its launches, which
-    :func:`block_smem_bytes` mirrors."""
-    fn = _function(name, f"{name}_smem_bytes", len(sizes), launch=False, restype=ctypes.c_size_t)
+    kernel instance for ``sizes`` and ``dtype``: the figure that sizes its
+    launches, which :func:`block_smem_bytes` mirrors."""
+    fn = _function(name, f"{name}_smem_bytes{_SUFFIX[dtype]}", len(sizes), launch=False,
+                   restype=ctypes.c_size_t)
     return int(fn(*sizes))
 
 
 def _qd_inverse_cuda(S, np_: int, nd: int):
-    if S.dtype != torch.float32:
-        raise TypeError(f"qd_inverse kernel takes float32, got {S.dtype}")
+    if S.dtype not in _SUFFIX:
+        raise TypeError(f"qd_inverse kernel takes float32 or float64, got {S.dtype}")
     if S.dim() != 3 or S.shape[1] != np_ + nd or S.shape[2] != np_ + nd:
         raise ValueError(f"qd_inverse expects (m, {np_ + nd}, {np_ + nd}), got {tuple(S.shape)}")
     if np_ < 1 or nd < 0 or np_ + nd > MAX_BLOCK:
@@ -219,8 +230,8 @@ def chol_inverse_ref(A):
 
 
 def _chol_inverse_cuda(A):
-    if A.dtype != torch.float32:
-        raise TypeError(f"chol_inverse kernel takes float32, got {A.dtype}")
+    if A.dtype not in _SUFFIX:
+        raise TypeError(f"chol_inverse kernel takes float32 or float64, got {A.dtype}")
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"chol_inverse expects (m, n, n), got {tuple(A.shape)}")
     if not 1 <= A.shape[1] <= MAX_BLOCK:

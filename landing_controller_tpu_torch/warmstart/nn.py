@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from ..problems.landing import LandingVars
 
 N_KNOTS = 21
@@ -111,10 +112,11 @@ class WarmstartMLP(nn.Module):
         return self.layers[-1](x)
 
 
-def build_mlp(weights, biases, dtype=torch.float32, device="cpu") -> WarmstartMLP:
-    """MLP from (in, out)-shaped weight matrices (``h @ w + b`` convention)."""
+def build_mlp(weights, biases, dtype=torch.float32, device="cuda") -> WarmstartMLP:
+    """MLP from (in, out)-shaped weight matrices (``h @ w + b`` convention),
+    on the card unless ``device="cpu"``."""
     sizes = [np.shape(weights[0])[0]] + [np.shape(w)[1] for w in weights]
-    mlp = WarmstartMLP(tuple(sizes)).to(dtype=dtype, device=device)
+    mlp = WarmstartMLP(tuple(sizes)).to(dtype=dtype, device=resolve_device(device))
     with torch.no_grad():
         for layer, w, b in zip(mlp.layers, weights, biases):
             layer.weight.copy_(torch.as_tensor(np.array(w).T))
@@ -123,10 +125,11 @@ def build_mlp(weights, biases, dtype=torch.float32, device="cpu") -> WarmstartML
 
 
 def init_mlp(generator: torch.Generator | None = None, hidden: int = HIDDEN, depth: int = 3,
-             dtype=torch.float32, device="cpu") -> WarmstartMLP:
+             dtype=torch.float32, device="cuda") -> WarmstartMLP:
     """9 -> hidden^depth -> 976 MLP with He-normal weights (std sqrt(2 / m)
-    for a layer of m inputs) and zero biases; the draws come from
-    ``generator`` (a fresh one seeded 0 when None) on its own device."""
+    for a layer of m inputs) and zero biases, on the card unless
+    ``device="cpu"``; the draws come from ``generator`` (a fresh one seeded 0
+    on the CPU when None) on its own device."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     sizes = [INPUT_DIM] + [hidden] * depth + [OUTPUT_DIM]
@@ -203,15 +206,18 @@ def stats_to_numpy(stats: DataStats) -> dict:
             for f in dataclasses.fields(DataStats)}
 
 
-def stats_from_numpy(stats: dict, dtype=torch.float32, device="cpu") -> DataStats:
+def stats_from_numpy(stats: dict, dtype=torch.float32, device="cuda") -> DataStats:
+    """{DataStats field: array} -> DataStats, on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     return DataStats(**{
         f.name: torch.as_tensor(np.array(stats[f.name]), dtype=dtype, device=device)
         for f in dataclasses.fields(DataStats)
     })
 
 
-def load_warmstart(path: str, dtype=torch.float32, device="cpu"):
-    """Load (WarmstartMLP, DataStats) from the warm-start ``.npz`` artifact."""
+def load_warmstart(path: str, dtype=torch.float32, device="cuda"):
+    """Load (WarmstartMLP, DataStats) from the warm-start ``.npz`` artifact,
+    on the card unless ``device="cpu"``."""
     with np.load(path) as d:
         n_layers = int(d["n_layers"])
         ws = [d[f"w{i}"] for i in range(n_layers)]

@@ -63,7 +63,7 @@ def _port_net(params, stats, dtype):
     return convert.mlp_from_numpy([np.asarray(w) for w in params.weights],
                                   [np.asarray(b) for b in params.biases],
                                   {f: np.asarray(getattr(stats, f))
-                                   for f in jnn.DataStats._fields}, dtype=dtype)
+                                   for f in jnn.DataStats._fields}, dtype=dtype, device="cpu")
 
 
 def _drops():

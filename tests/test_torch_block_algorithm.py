@@ -175,3 +175,16 @@ def test_shared_memory_of_the_paths_shapes():
     limit = 227 * 1024
     assert all(pallas_blocks.block_smem_bytes(bs) < limit
                for bs in range(1, pallas_blocks.MAX_BLOCK + 1))
+
+
+def test_shared_memory_of_the_f64_instances():
+    """The double instance: the same layout on 8-byte words (the table stays
+    two bytes an entry); above the default 48 KB only past 72 wide, where the
+    launcher raises the kernel's limit, and always below the card's 227 KB."""
+    assert qd_inverse_smem_bytes(36, 24, torch.float64) == 8 * (60 * 60 + 8 * 60) + 240 == 32880
+    assert qd_inverse_smem_bytes(48, 36, torch.float64) == 8 * (84 * 84 + 8 * 84) + 464 == 62288
+    assert chol_inverse_smem_bytes(48, torch.float64) == 8 * (48 * 52 + 8 * 48) + 160 == 23200
+    over = [bs for bs in range(1, pallas_blocks.MAX_BLOCK + 1)
+            if pallas_blocks.block_smem_bytes(bs, torch.float64) > 48 * 1024]
+    assert over == list(range(73, pallas_blocks.MAX_BLOCK + 1))
+    assert pallas_blocks.block_smem_bytes(pallas_blocks.MAX_BLOCK, torch.float64) < 227 * 1024

@@ -92,3 +92,25 @@ def test_bounds_from_shapes():
     ms, by = chip_smoke.chol_inverse_bound_ms(5120, 48)
     assert by == "bytes" and ms == pytest.approx(1e3 * 5120 * (2 * 48 * 48 * 4 + 1) / 3.35e12)
     assert 5120 * 48.0**3 / 67e12 < ms * 1e-3
+
+
+def test_f64_bounds_from_shapes():
+    """The double instances move 8-byte words: twice the f32 byte bound, and
+    the operations count against the f64 peak (34 TFLOP/s); still bound by
+    bytes at the paths' shapes."""
+    for m, np_, nd in ((1280, 36, 24), (5120, 48, 36), (1280, 30, 20)):
+        ms, by = chip_smoke.qd_inverse_bound_ms(m, np_, nd, itemsize=8)
+        bs = np_ + nd
+        assert by == "bytes" and ms == pytest.approx(1e3 * m * (2 * bs * bs * 8 + 1) / 3.35e12)
+    ms, by = chip_smoke.chol_inverse_bound_ms(5120, 48, itemsize=8)
+    assert by == "bytes" and ms == pytest.approx(0.0563, abs=1e-4)
+    assert 5120 * 48.0**3 / 34e12 < ms * 1e-3
+
+
+def test_dynamics_inputs_are_seeded_configurations():
+    q, qd, tau, qdd = chip_smoke.dynamics_inputs(18, 64)
+    assert q.shape == qd.shape == tau.shape == qdd.shape == (64, 18)
+    assert np.array_equal(q, chip_smoke.dynamics_inputs(18, 64)[0])
+    assert ((q[:, 2] >= 0.1) & (q[:, 2] <= 0.7)).all() and (np.abs(q[:, 3:6]) <= 0.4).all()
+    assert chip_smoke._rel_err(np.array([1.0, 2.0]), np.array([1.0, 2.0 + 4e-9])) == \
+        pytest.approx(2e-9)

@@ -98,8 +98,15 @@ def test_kernel_counts_launches_and_checks_inputs(dev):
     qd_inverse(S, 6, 4)
     qd_inverse(S.cpu(), 6, 4)  # the plain version: not a launch
     assert qd_inverse.launches == before + 1
+    # f64 goes through the kernel's double instance, which agrees with the
+    # plain version in f64; any other type raises
+    out64, ok64 = qd_inverse(S.double(), 6, 4)
+    assert qd_inverse.launches == before + 2 and out64.dtype == torch.float64
+    ref64, ok_ref64 = qd_inverse_ref(S.double(), 6, 4)
+    assert torch.equal(ok64, ok_ref64) and bool(ok64.all())
+    torch.testing.assert_close(out64, ref64, rtol=1e-10, atol=1e-10)
     with pytest.raises(TypeError):
-        qd_inverse(S.double(), 6, 4)
+        qd_inverse(S.half(), 6, 4)
     with pytest.raises(ValueError):
         qd_inverse(S, 5, 4)
     # a non-contiguous view is accepted (the wrapper makes it contiguous)
@@ -247,8 +254,11 @@ def test_chol_kernel_counts_launches_and_checks_inputs(dev):
     chol_inverse(A)
     chol_inverse(A.cpu())  # the plain version: not a launch
     assert chol_inverse.launches == before + 1
+    out64, ok64 = chol_inverse(A.double())  # the double instance
+    assert chol_inverse.launches == before + 2 and bool(ok64.all())
+    torch.testing.assert_close(out64, chol_inverse_ref(A.double())[0], rtol=1e-10, atol=1e-10)
     with pytest.raises(TypeError):
-        chol_inverse(A.double())
+        chol_inverse(A.half())
     with pytest.raises(ValueError):
         chol_inverse(A[:, :5])
     with pytest.raises(ValueError):
@@ -277,3 +287,61 @@ def test_non_finite_blocks_fail_in_kernels_and_plain_versions(dev):
     A = torch.as_tensor(A, device=dev)
     assert chol_inverse(A)[1].tolist() == [True, False, False, True]
     assert chol_inverse_ref(A)[1].tolist() == [True, False, False, True]
+
+
+# rtol=atol=1e-10: an f64 factorization in another summation order than the
+# plain version's, on blocks whose condition numbers stay below 1e3
+@pytest.mark.parametrize("np_,nd,m", [(36, 24, 1280), (48, 36, 5120), (36, 40, 64), (30, 20, 133),
+                                      (7, 4, 5)])
+def test_f64_kernel_matches_plain(dev, np_, nd, m):
+    S = _random_qd_blocks(np.random.default_rng(m + 64), m, np_, nd).astype(np.float64)
+    S[1, 0, 0] = -5.0
+    S = torch.as_tensor(S, device=dev)
+    out_k, ok_k = qd_inverse(S, np_, nd)
+    out_p, ok_p = qd_inverse_ref(S.cpu(), np_, nd)
+    torch.cuda.synchronize()
+    assert out_k.dtype == torch.float64
+    assert torch.equal(ok_k.cpu(), ok_p) and not bool(ok_k[1]) and int(ok_k.sum()) == m - 1
+    torch.testing.assert_close(out_k[ok_k].cpu(), out_p[ok_p], rtol=1e-10, atol=1e-10)
+    assert torch.equal(out_k[ok_k], out_k[ok_k].transpose(1, 2))  # symmetric bit for bit
+
+
+@pytest.mark.parametrize("n,m", [(48, 5120), (84, 64), (5, 3)])
+def test_f64_chol_kernel_matches_plain(dev, n, m):
+    A = _random_spd(np.random.default_rng(n + 7), m, n).astype(np.float64)
+    A = torch.as_tensor(A, device=dev)
+    out_k, ok_k = chol_inverse(A)
+    out_p, ok_p = chol_inverse_ref(A.cpu())
+    torch.cuda.synchronize()
+    assert bool(ok_k.all()) and bool(ok_p.all())
+    torch.testing.assert_close(out_k.cpu(), out_p, rtol=1e-10, atol=1e-10)
+    assert torch.equal(out_k, out_k.transpose(1, 2))
+
+
+def test_f64_occupancy_and_shared_memory(dev):
+    """The double instances' shared memory as the library sizes it equals the
+    Python mirror, also above 48 KB, and every instance the paths run keeps at
+    least one block on an SM."""
+    for np_, nd in ((36, 24), (48, 36), (36, 40), (30, 20)):
+        assert (pallas_blocks.library_smem_bytes("qd_inverse", np_, nd, dtype=torch.float64)
+                == pallas_blocks.qd_inverse_smem_bytes(np_, nd, torch.float64))
+        assert pallas_blocks.blocks_per_sm("qd_inverse", np_, nd, dtype=torch.float64) >= 1
+    for n in (36, 48, 84):
+        assert (pallas_blocks.library_smem_bytes("chol_inverse", n, dtype=torch.float64)
+                == pallas_blocks.chol_inverse_smem_bytes(n, torch.float64))
+        assert pallas_blocks.blocks_per_sm("chol_inverse", n, dtype=torch.float64) >= 1
+
+
+def test_f64_solver_goes_through_the_kernel(dev):
+    """LandingSolver("srbm_lcp", dtype=torch.float64) on the card solves
+    through cri and the kernel's double instance, as the CPU solve does
+    through the plain version, to the same cost."""
+    from landing_controller_tpu_torch import LandingSolver
+
+    q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
+    before = qd_inverse.launches
+    s_gpu = LandingSolver("srbm_lcp", dtype=torch.float64, device="cuda").solve(q0, qd0)
+    assert qd_inverse.launches > before
+    s_cpu = LandingSolver("srbm_lcp", dtype=torch.float64, device="cpu").solve(q0, qd0)
+    assert bool(s_gpu.converged) and bool(s_cpu.converged)
+    assert abs(float(s_gpu.cost) - float(s_cpu.cost)) <= 1e-6 * abs(float(s_cpu.cost))

@@ -27,12 +27,13 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 43
+    assert len(modules) >= 49
     for name in ("dynamics.legs", "ops.block_tridiag", "ops.cyclic_reduction", "problems.eeparam",
                  "warmstart.cascade", "warmstart.replan", "data.factory", "parallel.batch",
                  "parallel.multihost", "parallel.montecarlo", "runtime.native",
                  "analysis.warmstart_bench", "analysis.nn_validation",
-                 "analysis.foot_positions"):
+                 "analysis.foot_positions", "dynamics.spatial", "dynamics.quaternion",
+                 "dynamics.featherstone", "ops.branch_sparsity", "analysis.vbl", "_device"):
         assert f"landing_controller_tpu_torch.{name}" in modules
     code = "\n".join(
         [

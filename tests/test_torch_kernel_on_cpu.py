@@ -10,7 +10,10 @@ the header's own ``smem_bytes``.  So the kernel's indexing, its barriers and
 its arithmetic are held against the plain versions here, where there is no
 card: compile-time instances and the run-time instance, widths that are no
 multiple of 4, an indefinite block, the pivot clamp, non-finite blocks.
-Tolerance 2e-4 as on the card (tests/test_torch_cuda.py).  The header's
+Tolerance 2e-4 as on the card (tests/test_torch_cuda.py).  The double
+instance of the same header is held to the plain versions in f64 at 1e-10
+(an f64 factorization in another summation order than LAPACK's, on blocks
+whose condition numbers stay below 1e3).  The header's
 build-time variants (other numbers of threads per block, the clock stamps
 that tests/probe_block_kernels.py reads on the card) are built and held to
 the same results.  Skipped where no g++ with C++20 is installed.
@@ -60,20 +63,22 @@ def harness(tmp_path_factory):
     return build_harness(tmp_path_factory)
 
 
-def run_on_cpu(harness, tmp_path, S, np_, fixed, stdout=None):
-    """(m, bs, bs) f32 -> (inverse, ok) through the harness; its standard
-    output's lines are appended to the list ``stdout``."""
+def run_on_cpu(harness, tmp_path, S, np_, fixed, stdout=None, dtype=np.float32):
+    """(m, bs, bs) -> (inverse, ok) through the harness's instance for
+    ``dtype`` (f32 or f64); its standard output's lines are appended to the
+    list ``stdout``."""
     m, bs, _ = S.shape
+    size = np.dtype(dtype).itemsize
     src, dst = str(tmp_path / "in.bin"), str(tmp_path / "out.bin")
-    np.ascontiguousarray(S, np.float32).tofile(src)
-    done = subprocess.run([harness, str(m), str(bs), str(np_), str(int(fixed)), src, dst],
-                          capture_output=True, text=True, timeout=300)
+    np.ascontiguousarray(S, dtype).tofile(src)
+    done = subprocess.run([harness, str(m), str(bs), str(np_), str(int(fixed)), src, dst,
+                           str(size)], capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-2000:]
     if stdout is not None:
         stdout += done.stdout.splitlines()
     raw = np.fromfile(dst, np.uint8)
-    out = raw[:4 * m * bs * bs].view(np.float32).reshape(m, bs, bs)
-    return out, raw[4 * m * bs * bs:].astype(bool)
+    out = raw[:size * m * bs * bs].view(dtype).reshape(m, bs, bs)
+    return out, raw[size * m * bs * bs:].astype(bool)
 
 
 def _random_qd_blocks(rng, m, np_, nd):
@@ -96,11 +101,11 @@ def _random_spd(rng, m, n):
     return (A @ A.transpose(0, 2, 1) / n + np.eye(n)[None] * 0.5).astype(np.float32)
 
 
-def _check(out, ok, ref, ok_ref, want_ok):
+def _check(out, ok, ref, ok_ref, want_ok, tol=2e-4):
     assert ok.tolist() == ok_ref.tolist() == want_ok
     assert not (out == -777.0).any()  # every entry written, ok or not
     good = np.asarray(want_ok)
-    np.testing.assert_allclose(out[good], ref.numpy()[good], rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(out[good], ref.numpy()[good], rtol=tol, atol=tol)
     assert np.array_equal(out[good], out[good].transpose(0, 2, 1))  # symmetric bit for bit
 
 
@@ -123,6 +128,43 @@ def test_chol_inverse_source_matches_plain(harness, tmp_path, n, fixed):
     out, ok = run_on_cpu(harness, tmp_path, A, padded_size(n), fixed)  # every column positive
     ref, ok_ref = chol_inverse_ref(torch.as_tensor(A))
     _check(out, ok, ref, ok_ref, [True, False, True])
+
+
+# the double instance: the paths' compile-time shapes, the run-time instance
+# at (30, 20) and chol n = 48, against the plain versions in f64
+@pytest.mark.parametrize("np_,nd,fixed", [(36, 24, True), (48, 36, True), (30, 20, False),
+                                          (7, 4, False)])
+def test_qd_inverse_f64_source_matches_plain(harness, tmp_path, np_, nd, fixed):
+    S = _random_qd_blocks(np.random.default_rng(np_ * nd), 3, np_, nd).astype(np.float64)
+    S[1, 0, 0] = -5.0
+    out, ok = run_on_cpu(harness, tmp_path, S, np_, fixed, dtype=np.float64)
+    assert out.dtype == np.float64
+    ref, ok_ref = qd_inverse_ref(torch.as_tensor(S), np_, nd)
+    _check(out, ok, ref, ok_ref, [True, False, True], tol=1e-10)
+
+
+@pytest.mark.parametrize("n,fixed", [(48, True), (48, False), (84, False)])
+def test_chol_inverse_f64_source_matches_plain(harness, tmp_path, n, fixed):
+    A = _random_spd(np.random.default_rng(n + 1), 3, n).astype(np.float64)
+    A[1, 0, 0] = -5.0
+    out, ok = run_on_cpu(harness, tmp_path, A, padded_size(n), fixed, dtype=np.float64)
+    ref, ok_ref = chol_inverse_ref(torch.as_tensor(A))
+    _check(out, ok, ref, ok_ref, [True, False, True], tol=1e-10)
+
+
+def test_f64_source_follows_the_pivot_clamp(harness, tmp_path):
+    """The double instance keeps the f32 rule: a positive pivot d below 1e-30
+    passes, and its factor is d / sqrt(1e-30), so the inverse holds
+    1 / (d^2 1e30) (f32 overflows there; f64 does not at d = 1e-37); a NaN
+    fails; a pivot of 1e-29, above the clamp, is inverted exactly."""
+    A = np.eye(8)[None].repeat(3, 0)
+    A[0, 0, 0] = 1e-37
+    A[1, 2, 2] = np.nan
+    A[2, 0, 0] = 1e-29
+    out, ok = run_on_cpu(harness, tmp_path, A, 8, False, dtype=np.float64)
+    assert ok.tolist() == [True, False, True]
+    np.testing.assert_allclose(out[0], np.diag([1e44] + [1.0] * 7), rtol=1e-15)
+    np.testing.assert_allclose(out[2], np.diag([1e29] + [1.0] * 7), rtol=1e-15)
 
 
 def test_source_follows_the_pivot_clamp_and_fails_non_finite_blocks(harness, tmp_path):

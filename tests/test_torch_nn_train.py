@@ -22,6 +22,9 @@ import torch
 
 from landing_controller_tpu.warmstart import nn as jnn
 from landing_controller_tpu_torch import convert
+from landing_controller_tpu_torch.analysis import default_vbl_weights
+from landing_controller_tpu_torch.dynamics.featherstone import composite_body_inertia
+from landing_controller_tpu_torch.models import get_robot_model
 from landing_controller_tpu_torch.warmstart import nn
 
 # the port's ops are small: one intra-op thread per test process keeps
@@ -112,13 +115,13 @@ def test_train_mlp_from_jax_weights_matches_jax_losses():
                            batch_size=32, hidden=64)
     stats = {f: np.asarray(getattr(sj, f)) for f in FIELDS}
     mlp, _ = convert.mlp_from_numpy([np.asarray(w) for w in p0.weights],
-                                    [np.asarray(b) for b in p0.biases], stats)
+                                    [np.asarray(b) for b in p0.biases], stats, device="cpu")
     mlp, lt = nn.train_mlp(torch.as_tensor(x32), torch.as_tensor(t32), epochs=30, batch_size=32,
                            mlp=mlp)
     assert len(lt) == len(lj) == 30
     np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=0)
     assert lt[-1] < 0.5 * lt[0]
-    weights, _, _ = convert.mlp_to_numpy(mlp, nn.stats_from_numpy(stats))
+    weights, _, _ = convert.mlp_to_numpy(mlp, nn.stats_from_numpy(stats, device="cpu"))
     for wt, wj in zip(weights, pj.weights):
         np.testing.assert_allclose(wt, np.asarray(wj), rtol=0, atol=1e-4)
     assert not any(p.requires_grad for p in mlp.parameters())
@@ -133,7 +136,7 @@ def test_train_mlp_drops_the_partial_batch_and_draws_from_its_generator():
     assert runs[0][1] == runs[1][1] and runs[0][1] != runs[2][1]
     # two batches of 4 per epoch; the last 2 samples of each permutation are
     # dropped, as in JAX
-    mlp = nn.init_mlp(torch.Generator().manual_seed(9), hidden=16)
+    mlp = nn.init_mlp(torch.Generator().manual_seed(9), hidden=16, device="cpu")
     seen = []
     hook = mlp.layers[0].register_forward_hook(lambda m, i, o: seen.append(i[0].shape[0]))
     nn.train_mlp(x, y, epochs=2, batch_size=4, mlp=mlp)
@@ -143,7 +146,7 @@ def test_train_mlp_drops_the_partial_batch_and_draws_from_its_generator():
 
 def test_init_mlp_is_he_normal_with_zero_biases():
     mlp = nn.init_mlp(torch.Generator().manual_seed(0), hidden=256, depth=3,
-                      dtype=torch.float64)
+                      dtype=torch.float64, device="cpu")
     sizes = [(layer.in_features, layer.out_features) for layer in mlp.layers]
     assert sizes == [(9, 256), (256, 256), (256, 256), (256, 976)]
     for layer in mlp.layers:
@@ -151,7 +154,8 @@ def test_init_mlp_is_he_normal_with_zero_biases():
         assert layer.weight.dtype == torch.float64
         assert float(layer.weight.std()) == pytest.approx(np.sqrt(2.0 / m), rel=0.1)
         assert (layer.bias == 0).all()
-    again = nn.init_mlp(torch.Generator().manual_seed(0), hidden=256, dtype=torch.float64)
+    again = nn.init_mlp(torch.Generator().manual_seed(0), hidden=256, dtype=torch.float64,
+                        device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(mlp.parameters(), again.parameters()))
 
 
@@ -167,11 +171,11 @@ def test_warmstart_files_are_interchangeable(tmp_path):
     rng = np.random.default_rng(5)
     stats = {k: v.astype(np.float32) for k, v in _stats_np(rng).items()}
     # the port's file, read by JAX
-    mlp = nn.init_mlp(torch.Generator().manual_seed(1), hidden=32, depth=2)
+    mlp = nn.init_mlp(torch.Generator().manual_seed(1), hidden=32, depth=2, device="cpu")
     path = str(tmp_path / "port.npz")
-    nn.save_warmstart(path, mlp, nn.stats_from_numpy(stats))
+    nn.save_warmstart(path, mlp, nn.stats_from_numpy(stats, device="cpu"))
     pj, sj = jnn.load_warmstart(path)
-    weights, biases, st = convert.mlp_to_numpy(mlp, nn.stats_from_numpy(stats))
+    weights, biases, st = convert.mlp_to_numpy(mlp, nn.stats_from_numpy(stats, device="cpu"))
     assert len(pj.weights) == 3
     for a, b in zip(weights + biases, list(pj.weights) + list(pj.biases)):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -186,7 +190,7 @@ def test_warmstart_files_are_interchangeable(tmp_path):
     p0 = jnn.init_mlp(jax.random.PRNGKey(2), hidden=32, depth=2)
     path_j = str(tmp_path / "jax.npz")
     jnn.save_warmstart(path_j, p0, jnn.DataStats(**{k: jnp.asarray(v) for k, v in stats.items()}))
-    mlp_t, st_t = nn.load_warmstart(path_j)
+    mlp_t, st_t = nn.load_warmstart(path_j, device="cpu")
     w_t, b_t, s_t = convert.mlp_to_numpy(mlp_t, st_t)
     for a, b in zip(w_t + b_t, list(p0.weights) + list(p0.biases)):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -197,3 +201,39 @@ def test_warmstart_files_are_interchangeable(tmp_path):
     np.testing.assert_allclose(mlp_t(torch.as_tensor(x)).numpy(),
                                np.asarray(jax.vmap(lambda v: jnn.mlp_apply(p0, v))(x)),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_loaders_default_to_the_card(tmp_path):
+    """build_mlp, init_mlp, stats_from_numpy, load_warmstart, the convert
+    helpers, analysis.default_vbl_weights and composite_body_inertia of an
+    array take the card unless given device="cpu"; without one they raise,
+    as LandingSolver does."""
+    stats = {f: np.zeros(3) for f in FIELDS}
+    mlp = nn.init_mlp(torch.Generator().manual_seed(1), hidden=4, depth=1, device="cpu")
+    path = str(tmp_path / "ws.npz")
+    nn.save_warmstart(path, mlp, nn.stats_from_numpy(stats, device="cpu"))
+    weights, biases, st = convert.mlp_to_numpy(mlp, nn.stats_from_numpy(stats, device="cpu"))
+    model = get_robot_model("mc3D")
+    calls = [lambda **kw: nn.build_mlp(weights, biases, **kw),
+             lambda **kw: nn.init_mlp(torch.Generator().manual_seed(1), hidden=4, depth=1, **kw),
+             lambda **kw: nn.stats_from_numpy(stats, **kw),
+             lambda **kw: nn.load_warmstart(path, **kw),
+             lambda **kw: convert.mlp_from_numpy(weights, biases, st, **kw),
+             lambda **kw: default_vbl_weights(**kw),
+             lambda **kw: composite_body_inertia(model, model.q_home, **kw),
+             lambda **kw: convert.landing_params_from_numpy(
+                 {"x_ref": np.zeros((3, 12))}, **kw)]
+    for call in calls[:7]:
+        out = call(device="cpu")
+        leaf = out[0] if isinstance(out, tuple) else out
+        if isinstance(leaf, torch.nn.Module):
+            assert next(leaf.parameters()).device.type == "cpu"
+        elif isinstance(leaf, torch.Tensor):
+            assert leaf.device.type == "cpu"
+        else:
+            assert getattr(leaf, FIELDS[0]).device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

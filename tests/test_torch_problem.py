@@ -51,7 +51,7 @@ def _theta_pair(q0, qd0, n):
     th_j = j_ref.srbm_lcp_params(jnp.asarray(q0), jnp.asarray(qd0), n_knots=n)
     fields = {f.name: np.asarray(getattr(th_j, f.name)) for f in dataclasses.fields(th_j)
               if getattr(th_j, f.name) is not None}
-    return th_j, landing_params_from_numpy(fields)
+    return th_j, landing_params_from_numpy(fields, device="cpu")
 
 
 def test_srbm_constants_match():

@@ -132,7 +132,7 @@ def test_residuals_match(kind):
         cs[2, 1] = 0.0
         cs[3:, 2] = 0.0
         th_j = dataclasses.replace(th_j, cs=jnp.asarray(cs))
-    th_t = landing_params_from_numpy(_fields(th_j))
+    th_t = landing_params_from_numpy(_fields(th_j), device="cpu")
     z = rng.standard_normal((3, pj.n_vars))
     th_t3 = dataclasses.replace(th_t, **{
         k: torch.as_tensor(np.array(v)).expand((3,) + v.shape).clone()
@@ -154,7 +154,7 @@ def test_cold_guesses_match(kind):
     pj, pt, j_params, _ = _pair(kind)
     q0, qd0 = _scenario(np.random.default_rng(20 + len(kind)))
     th_j = j_params(jnp.asarray(q0), jnp.asarray(qd0), n_knots=N)
-    th_t = landing_params_from_numpy(_fields(th_j))
+    th_t = landing_params_from_numpy(_fields(th_j), device="cpu")
     _close(t_ref.initial_guess_from_reference(pt, th_t)[0],
            j_ref.initial_guess_from_reference(pj, th_j))
     _close(t_ref.ballistic_guess(pt, th_t)[0], j_ref.ballistic_guess(pj, th_j))
@@ -167,7 +167,7 @@ def test_nn_guess_keeps_jpos_for_kinodynamic(jdt, tdt, tol):
     keeps the predicted joint angles."""
     path = os.path.join(os.path.dirname(j_nn.__file__), "..", "data", "nn_TO_landing.npz")
     params_j, stats_j = j_nn.load_warmstart(path, dtype=jdt)
-    mlp, stats_t = t_nn.load_warmstart(path, dtype=tdt)
+    mlp, stats_t = t_nn.load_warmstart(path, dtype=tdt, device="cpu")
     pj = j_landing.kinodynamic_problem(j_get_robot_params("mc3D"))
     pt = t_landing.kinodynamic_problem(get_robot_params("mc3D"))
     rng = np.random.default_rng(7)

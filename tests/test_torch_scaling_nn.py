@@ -40,7 +40,7 @@ def test_nn_guess_matches_through_convert():
     stats = {k: np.asarray(getattr(stats_j, k)) for k in stats_j._fields}
     mlp, stats_t = mlp_from_numpy([np.asarray(w) for w in params_j.weights],
                                   [np.asarray(b) for b in params_j.biases], stats,
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device="cpu")
     pj = j_srbm_lcp_problem(j_get_robot_params("mc3D"), n_knots=21)
     pt = srbm_lcp_problem(None, n_knots=21)
     rng = np.random.default_rng(7)
@@ -51,7 +51,7 @@ def test_nn_guess_matches_through_convert():
         jnp.asarray(q), jnp.asarray(qd))
     _close(got, want, 1e-9)
     # and the port's own loader reads the same artifact
-    mlp2, stats2 = t_nn.load_warmstart(path, dtype=torch.float64)
+    mlp2, stats2 = t_nn.load_warmstart(path, dtype=torch.float64, device="cpu")
     x = torch.as_tensor(rng.standard_normal((3, 9)))
     torch.testing.assert_close(mlp2(x), mlp(x), rtol=1e-6, atol=1e-6)
 
@@ -71,7 +71,7 @@ def test_nn_denormalize_touchdown_shift_matches():
     y[:, -4:] = rng.uniform(-1.4, 21.4, (5, 4))
     stats_j = j_nn.DataStats(**{k: jnp.asarray(v) for k, v in stats.items()})
     _, stats_t = mlp_from_numpy([np.zeros((9, 2)), np.zeros((2, 976))], [np.zeros(2), np.zeros(976)],
-                                stats, dtype=torch.float64)
+                                stats, dtype=torch.float64, device="cpu")
     X, U, jp = t_nn.denormalize_output(stats_t, torch.as_tensor(y))
     for i in range(5):
         Xj, Uj, jpj = j_nn.denormalize_output(stats_j, jnp.asarray(y[i]))

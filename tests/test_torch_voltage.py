@@ -65,7 +65,7 @@ def test_voltage_rows_labels_and_mask_match_jax():
     assert prob_t.ineq_row_labels() == prob_j.ineq_row_labels()
     np.testing.assert_array_equal(prob_t.relax_mask(), np.asarray(prob_j.relax_mask()))
     th_j = jax.jit(lambda q, qd: j_kino_params(q, qd, n_knots=n))(jnp.asarray(Q0), jnp.asarray(QD0))
-    th_t = landing_params_from_numpy(_fields(th_j))
+    th_t = landing_params_from_numpy(_fields(th_j), device="cpu")
     z = np.array(jax.jit(lambda th: j_reference_guess(prob_j, th))(th_j))
     ineq_j = jax.jit(prob_j.ineq)
     rng = np.random.default_rng(5)
