@@ -66,9 +66,19 @@ Phases (any failure exits nonzero, before the result line):
    the first 256 lanes against the CPU in f64), then ``joint_pd_sim`` of
    1,024 drops for 500 steps;
 19. the VBL Riccati value function along every converged trajectory of
-   phase 4, in f64, held against the CPU on two of them.
+   phase 4, in f64, held against the CPU on two of them;
+20. the deployment surface: the kernels' build cache under ``build/``,
+   phase 4's solver saved for a batch of 64 (``runtime.save_solver``) and
+   loaded by a fresh process that imports neither the problems nor the
+   api, its solve of phase 4's pool held against the live ``solve_batch``
+   (converged set, iterations, z) with its ``qd_inverse`` launches counted
+   there, host and device time per IP iteration live against loaded; the
+   StreamingSolver's step saved and loaded (``export_step``,
+   ``load_step``) and its run held against phase 4's, a mismatched key
+   refused; ``export_html`` and ``motor_voltages`` of a converged
+   kinodynamic trajectory of phase 6.
 
-Phases 10-19 run side by side, one spawned process each (phase 15 waits for
+Phases 10-20 run side by side, one spawned process each (phase 15 waits for
 the network that phase 14 saves); their wall times include one another's
 share of the card and of the host's cores.
 
@@ -435,19 +445,28 @@ def check_real_blocks(torch, name, kernel_fn, plain_fn, captured, rel_least_pivo
 
 def profile_iteration(torch, solver, q, qd, label, card, iters=3):
     """Host time, device time and kernel launches per IP iteration of the
-    lanes (q, qd): the host clock around `iters` iterations ending in a
-    synchronize, then the same under torch.profiler for the device side,
-    with the device time of each hand-written kernel by its name."""
+    solver's lanes (q, qd): :func:`profile_run` of one segment of `iters`
+    iterations."""
     snlp, st = solver.init_lanes(q, qd, 0)
     _, st = solver._segment_impl(None, None, st, 1, snlp=snlp)  # first-call costs
+    return profile_run(torch, lambda k: solver._segment_impl(None, None, st, k, snlp=snlp), label,
+                       len(q), card, iters)
+
+
+def profile_run(torch, run, label, B, card, iters=3):
+    """Host and device time and kernel launches per IP iteration of
+    ``run(iters)`` (`iters` iterations of B lanes, then their diagnostics):
+    the host clock around one run ending in a synchronize, then the same run
+    under torch.profiler for the device side, with the device time of each
+    hand-written kernel by its name; returns (host ms, device ms)."""
     torch.cuda.synchronize()
     t0 = time.time()
-    solver._segment_impl(None, None, st, iters, snlp=snlp)
+    run(iters)
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.time() - t0) / iters
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        solver._segment_impl(None, None, st, iters, snlp=snlp)
+        run(iters)
         torch.cuda.synchronize()
     events = prof.key_averages()
     dev_attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
@@ -463,13 +482,14 @@ def profile_iteration(torch, solver, q, qd, label, card, iters=3):
         n = sum(e.count for e in kernels if name in e.key)
         ours.append(f"{name} {us / 1e3 / iters:.3f} ms per iteration in {n / iters:.0f} launches "
                     f"({us / max(device_us, 1):.3f} of device time)")
-    log(f"[profile] {label} B={len(q)} on {card}: host {host_ms:.1f} ms per iteration, device busy "
+    log(f"[profile] {label} B={B} on {card}: host {host_ms:.1f} ms per iteration, device busy "
         f"{dev_ms:.2f} ms per iteration (idle share {1 - dev_ms / host_ms:.3f}), "
         f"{launches / iters:.0f} cudaLaunchKernel per iteration; " + "; ".join(ours))
     top = sorted(kernels, key=lambda e: -getattr(e, dev_attr))[:8]
     for e in top:
         log(f"[profile]   {getattr(e, dev_attr) / 1e3 / iters:8.3f} ms/iter  {e.count // iters:5d}x  "
             f"{e.key[:80]}")
+    return host_ms, dev_ms
 
 
 def eeparam_drops(seed: int, n: int):
@@ -824,7 +844,7 @@ def warmstart_phase(torch, card, launches, dev):
     srbm = LandingSolver("srbm_lcp", dtype=torch.float32, config=tool_config(WARMSTART_MAX_ITER),
                          device=dev)
     T, B = WARMSTART_TRIALS, N_WARMSTART
-    q, qd = sample_drop_scenario(T * B, torch.Generator().manual_seed(999))
+    q, qd = sample_drop_scenario(T * B, torch.Generator().manual_seed(999), device="cpu")
     qd_inverse.launches = 0
     res, wall, _ = run_timed(torch, lambda: warmstart_comparison(
         kino, srbm, mlp, stats, q.reshape(T, B, 6), qd.reshape(T, B, 6), n_trials=T))
@@ -1203,12 +1223,162 @@ def vbl_phase(torch, card, dev, X, U):
         raise AssertionError("vbl: the value function fails its checks")
 
 
+ARTIFACT_PATH = os.path.join(BUILD_OUT, "srbm_lcp_b64.lct")
+STEP_PATH = os.path.join(BUILD_OUT, "srbm_lcp_step_p64.lcs")
+# phase 20: the loaded solve's z against the live one's, scaled by max(1, |z|)
+# (the same ops on the same inputs: bit-equal on the CPU)
+ARTIFACT_Z_TOL = 1e-5
+
+
+def load_artifact_child(path, io_path):
+    """Phase 20's fresh process: load the saved solver, solve the pool of
+    ``io_path + ".in.npz"`` with its qd_inverse launches counted here, time
+    its iterations, and write the results to ``io_path + ".out.npz"``.  The
+    process never imports the port's problems, solver or api."""
+    import torch
+
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.runtime.artifact import load_solver
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    inputs = np.load(io_path + ".in.npz")
+    t0 = time.time()
+    fn = load_solver(path)
+    load_s = time.time() - t0
+    qd_inverse.launches = 0
+    t0 = time.time()
+    sol = fn(inputs["q"], inputs["qd"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = qd_inverse.launches
+    init, iterate, finish = fn.programs
+    n_scaled = fn.header["n_scaled"]
+    lanes = init(torch.as_tensor(inputs["q"], device="cuda"),
+                 torch.as_tensor(inputs["qd"], device="cuda"))
+    scaled, state = lanes[:n_scaled], iterate(*lanes)
+
+    def run(k):
+        st = state
+        for _ in range(k):
+            st = iterate(*scaled, *st)
+        return finish(*scaled, *st)
+
+    host_ms, dev_ms = profile_run(torch, run, "srbm_lcp loaded artifact", len(inputs["q"]), card)
+    unwanted = [m for m in sys.modules if m.startswith("landing_controller_tpu_torch.")
+                and m.split(".")[1] in ("problems", "solver", "api")]
+    np.savez(io_path + ".out.npz", z=sol.z.cpu().numpy(), it=sol.iterations.cpu().numpy(),
+             conv=sol.converged.cpu().numpy(), launches=launches, load_s=load_s, wall=wall,
+             host_ms=host_ms, dev_ms=dev_ms, unwanted=np.array(unwanted, dtype=str))
+
+
+def deploy_phase(torch, card, launches, dev, kino_ref, qk, qdk, stream_ref):
+    """Phase 20: the saved solver and the saved stream step on the card,
+    and the viewers on a converged kinodynamic trajectory of phase 6."""
+    from landing_controller_tpu_torch import StreamingSolver
+    from landing_controller_tpu_torch.dynamics.legs import leg_torques
+    from landing_controller_tpu_torch.models import get_robot_model
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.runtime import enable_persistent_cache, save_solver
+    from landing_controller_tpu_torch.viz import export_html, motor_voltages
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cache = enable_persistent_cache(os.path.join(repo, "build", "kernels"))
+    log(f"[deploy] kernel build cache {os.path.relpath(cache, repo)}")
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    solver, make_stream = srbm_lcp_path()
+    q, qd = bench_sampler(0)(N_SCENARIOS)  # phase 4's pool
+    t0 = time.time()
+    save_solver(solver, ARTIFACT_PATH, batch=N_SCENARIOS)
+    log(f"[deploy] save_solver srbm_lcp B={N_SCENARIOS} N=21 f32: traced and written in "
+        f"{time.time() - t0:.1f} s, {os.path.getsize(ARTIFACT_PATH) / 1e6:.2f} MB")
+    live = solver.solve_batch(q, qd)
+    torch.cuda.synchronize()
+    # the saved solve in a fresh process that never imports the problem code
+    io_path = os.path.join(BUILD_OUT, "artifact_io")
+    np.savez(io_path + ".in.npz", q=q, qd=qd)
+    code = (f"import chip_smoke; chip_smoke.load_artifact_child({ARTIFACT_PATH!r}, "
+            f"{io_path!r})")
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
+                           timeout=600)
+    for line in child.stdout.strip().splitlines():
+        log(f"[deploy]   {line}")
+    if child.returncode != 0:
+        raise AssertionError(f"the loading process failed:\n{child.stderr[-3000:]}")
+    out = np.load(io_path + ".out.npz")
+    launches["artifact"] = int(out["launches"])
+    it_live, conv_live = live.iterations.cpu().numpy(), live.converged.cpu().numpy()
+    z_live = live.z.cpu().numpy()
+    dz = float(np.max(np.abs(out["z"] - z_live) / np.maximum(1.0, np.abs(z_live))))
+    log(f"[deploy] loaded in a fresh process ({time.time() - t0:.1f} s in all, load "
+        f"{float(out['load_s']):.1f} s, solve {float(out['wall']):.2f} s): converged "
+        f"{int(out['conv'].sum())}/{N_SCENARIOS} (live {int(conv_live.sum())}), iterations equal "
+        f"{bool(np.array_equal(out['it'], it_live))}, largest |dz| / max(1, |z|) {dz:.3e} (limit "
+        f"{ARTIFACT_Z_TOL:g}; bit-equal {bool(np.array_equal(out['z'], z_live))}), qd_inverse "
+        f"launches in that process {launches['artifact']}, problem modules imported there "
+        f"{list(out['unwanted'])}")
+    if not (np.array_equal(out["conv"], conv_live) and np.array_equal(out["it"], it_live)
+            and dz <= ARTIFACT_Z_TOL and launches["artifact"] > 0 and out["unwanted"].size == 0):
+        raise AssertionError("the loaded artifact disagrees with the live solver")
+    live_host, live_dev = profile_iteration(torch, solver, q, qd, "srbm_lcp live", card)
+    log(f"[deploy] per IP iteration at B={N_SCENARIOS}: live host {live_host:.1f} ms / device "
+        f"{live_dev:.2f} ms, loaded host {float(out['host_ms']):.1f} ms / device "
+        f"{float(out['dev_ms']):.2f} ms")
+
+    # the StreamingSolver's saved step, run on phase 4's pool
+    t0 = time.time()
+    make_stream(0).export_step(STEP_PATH, N_SCENARIOS)
+    log(f"[deploy] export_step B=64 seg=25 P={N_SCENARIOS}: {time.time() - t0:.1f} s, "
+        f"{os.path.getsize(STEP_PATH) / 1e6:.2f} MB")
+    loaded = make_stream(0)
+    t0 = time.time()
+    if loaded.load_step(STEP_PATH, N_SCENARIOS) is not True:
+        raise AssertionError("load_step refused the step it was just given")
+    load_s = time.time() - t0
+    qd_inverse.launches = 0
+    stats = loaded.run(N_SCENARIOS)
+    torch.cuda.synchronize()
+    launches["stream_aot"] = qd_inverse.launches
+    other = StreamingSolver(solver, batch=64, segment=24, sampler=bench_sampler(0),
+                            attempt_iters=(100, 150))
+    refused = other.load_step(STEP_PATH, N_SCENARIOS) is False
+    same = np.array_equal(stats["converged_mask"], stream_ref)
+    log(f"[deploy] load_step {load_s:.1f} s; loaded stream on {card}: n_finished "
+        f"{stats['n_finished']}, converged {stats['n_converged']} (phase 4: "
+        f"{int(stream_ref.sum())}), converged_mask equal {same}, wall_s {stats['wall_s']:.2f}, "
+        f"qd_inverse launches {launches['stream_aot']}; another segment's key refused {refused}")
+    if not (same and refused and launches["stream_aot"] > 0):
+        raise AssertionError("the loaded stream step disagrees with phase 4's run")
+
+    # the viewers on the first converged kinodynamic drop of phase 6
+    i = int(np.flatnonzero(kino_ref["converged"])[0])
+    kino = kinodynamic_solver("cpu")
+    z = torch.as_tensor(kino_ref["z"][i : i + 1], dtype=torch.float64)
+    v = kino.problem.unpack(z)
+    model = get_robot_model()
+    tau = leg_torques(model.params, v.jpos, v.X[:, :-1, 3:6], v.U[..., 12:])
+    dt = kino.build_params(qk[i : i + 1], qdk[i : i + 1]).dt[0].numpy()
+    volts = motor_voltages(model, tau[0].numpy(), v.jpos[0].numpy(), dt)
+    html = export_html(os.path.join(BUILD_OUT, "kinodynamic_landing.html"), v.X[0].numpy(),
+                       v.U[0].numpy(), dt)
+    with open(html) as f:
+        page = f.read()
+    log(f"[deploy] viewers of kinodynamic drop {i}: largest motor voltage "
+        f"{float(np.abs(volts).max()):.2f} V (battery {model.battery_v} V), "
+        f"{os.path.relpath(html, repo)} {len(page)} bytes")
+    if not (np.isfinite(volts).all() and volts.shape == (20, 12) and "__DATA__" not in page):
+        raise AssertionError("the viewers failed on a converged trajectory")
+
+
 SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo",
-               "f64", "dynamics", "vbl")
+               "f64", "dynamics", "vbl", "deploy")
 
 
-def side_phase(name, card, qk, qdk, kino_ref, vbl_traj):
-    """One of phases 10-19 in a process of its own; returns its kernel
+def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
+    """One of phases 10-20 in a process of its own; returns its kernel
     launch counts {path: launches} and its readings {name: value} for the
     checks across phases."""
     import torch
@@ -1233,6 +1403,8 @@ def side_phase(name, card, qk, qdk, kino_ref, vbl_traj):
         dynamics_phase(torch, card, "cuda")
     elif name == "vbl":
         vbl_phase(torch, card, "cuda", *vbl_traj)
+    elif name == "deploy":
+        deploy_phase(torch, card, launches, "cuda", kino_ref, qk, qdk, stream_ref)
     else:
         {"montecarlo": montecarlo_phase, "f64": f64_phase}[name](torch, card, launches, "cuda",
                                                                  readings)
@@ -1692,9 +1864,10 @@ def main() -> int:
     profile_iteration(torch, volt, *sample_drop_scenarios(12, 32), "kinodynamic_voltage (dense)",
                       card)
 
-    # ---- 10-16. the dense path, EEParamSolver, the backends, cascade and
+    # ---- 10-20. the dense path, EEParamSolver, the backends, cascade and
     # replan, the factory and training, the warm-start comparison, the
-    # Monte-Carlo sweep: seven processes side by side on the card.  Each
+    # Monte-Carlo sweep, f64, the dynamics layer, VBL and the deployment
+    # surface: eleven processes side by side on the card.  Each
     # path is host-bound (the device idles 75-95% of an iteration, phase 9),
     # so together they take about as long as the longest chain (factory ->
     # warm start); their wall times include the others' share of the card
@@ -1707,7 +1880,8 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(len(SIDE_PHASES))
     readings = {}
     try:
-        jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref, vbl_traj))
+        jobs = [pool.apply_async(side_phase, (name, card, qk, qdk, kino_ref, vbl_traj,
+                                              stats["converged_mask"]))
                 for name in SIDE_PHASES]
         for job in jobs:
             # a worker that dies loses its job: wait no longer than the run allows
@@ -1734,7 +1908,7 @@ def main() -> int:
     # ---- the kernels line, the card line, the result line
     solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
                     "srbm_lcp_cri_backend", "cascade", "replan", "factory", "warmstart",
-                    "montecarlo", "foot_sweep", "srbm_lcp_f32")
+                    "montecarlo", "foot_sweep", "srbm_lcp_f32", "artifact", "stream_aot")
     f64_paths = ("srbm_lcp_f64", "foot_sweep_f64")
     kernels = [{
         "name": "qd_inverse",

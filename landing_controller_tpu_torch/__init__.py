@@ -9,15 +9,30 @@ and the receding-horizon replanner (``warmstart.cascade``,
 ``warmstart.replan``); the training-data factory and the warm start's
 training (``data``, ``warmstart.nn``), the analyses (``analysis``), and
 Monte-Carlo envelope sweeps over one process per card (``parallel``,
-``runtime``).  The block inverses of the "cri" factorization are
-hand-written CUDA kernels for Hopper (``csrc/qd_inverse.cu``,
-``csrc/chol_inverse.cu``).  Imports no JAX; the JAX package beside it is the
+``runtime``); saved solvers and stream steps (``runtime.artifact``) and the
+plots, animation and HTML viewer (``viz``).  The block inverses of the
+"cri" factorization are hand-written CUDA kernels for Hopper
+(``csrc/qd_inverse.cu``, ``csrc/chol_inverse.cu``), registered as custom
+ops.  Imports no JAX; the JAX package beside it is the
 reference the tests hold it against.
 """
 
-from .api import EEParamSolution, EEParamSolver, LandingSolution, LandingSolver
-from .parallel.stream import StreamingSolver
-from .solver.ip import IPConfig
+import importlib
 
-__all__ = ["EEParamSolution", "EEParamSolver", "IPConfig", "LandingSolution", "LandingSolver",
-           "StreamingSolver"]
+# the public names, imported at first use: a process that only loads a saved
+# solver (runtime.artifact) imports neither the problems nor the solver
+_EXPORTS = {
+    "EEParamSolution": ".api",
+    "EEParamSolver": ".api",
+    "IPConfig": ".solver.ip",
+    "LandingSolution": ".solution",
+    "LandingSolver": ".api",
+    "StreamingSolver": ".parallel.stream",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

@@ -38,7 +38,8 @@ from .problems.landing import (
     sliding_problem,
     srbm_lcp_problem,
 )
-from .solver.ip import IPConfig, solve
+from .solution import LandingSolution
+from .solver.ip import IPConfig, IPProgram, IPState, init_state, ip_program, solve
 from .solver.scaling import ScaledNLP, landing_z_scale, scale_problem
 from .solver.structured import make_structured_newton_step
 from .warmstart.reference import (
@@ -50,30 +51,9 @@ from .warmstart.reference import (
     srbm_lcp_params,
 )
 
-# the committed warm-start artifact, read as a data file by path
-DEFAULT_NN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "landing_controller_tpu", "data", "nn_TO_landing.npz",
-)
-
-
-@dataclasses.dataclass(frozen=True)
-class LandingSolution:
-    X: torch.Tensor  # (B, N, 12) base trajectory
-    jpos: torch.Tensor  # (B, N-1, 12) joint angles (empty for the srbm family)
-    U: torch.Tensor  # (B, N-1, 24) foot positions + GRFs
-    tau: torch.Tensor  # (B, N-1, 12) Jacobian-transpose joint torques (zeros for the srbm family)
-    z: torch.Tensor  # flat solution (reference layout)
-    converged: torch.Tensor
-    iterations: torch.Tensor
-    kkt_error: torch.Tensor
-    constr_viol: torch.Tensor
-    cost: torch.Tensor
-    # warm-start state (unscaled): inequality slacks and multipliers,
-    # equality multipliers
-    s: torch.Tensor
-    lam: torch.Tensor
-    y: torch.Tensor
+# the committed warm-start network, the port's own copy of the JAX package's
+DEFAULT_NN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                               "nn_TO_landing.npz")
 
 
 _PROBLEMS = {
@@ -220,23 +200,35 @@ class LandingSolver:
         return make_structured_newton_step(self.problem, theta, self.config, snlp)
 
     # ------------------------------------------------------------ solves
-    def _solve_impl(self, q_init, qd_init, z0=None, warm=None) -> LandingSolution:
-        """Solve B scenarios.  z0: optional primal warm start (B, n);
-        warm: optional unscaled (s, lam, y)."""
-        prob = self.problem
+    def program(self, snlp: ScaledNLP) -> IPProgram:
+        """The interior-point program (init, one iteration, final
+        diagnostics) of the lanes of ``snlp``."""
+        return ip_program(snlp.cost, snlp.eq, snlp.ineq, self.config,
+                          relax_mask=self._relax_mask,
+                          newton_step_fn=self._newton_step(snlp.theta, snlp))
+
+    def start(self, q_init, qd_init, z0=None, warm=None) -> tuple:
+        """The scaled problem and fresh IPState of B scenarios, as a full
+        solve starts them.  z0: optional primal warm start (B, n); warm:
+        optional unscaled (s, lam, y)."""
         theta = self.build_params(q_init, qd_init)
         z0 = self._cold_guess(theta) if z0 is None else self._as_batch(z0)
         snlp = self.scaled_problem(theta, z0)
-        step_fn = self._newton_step(theta, snlp)
         s0 = lam0 = y0 = None
         if warm is not None:
             s_u, lam_u, y_u = (self._as_batch(w) for w in warm)
             s0 = torch.clamp(snlp.slacks_to_scaled(s_u), min=1e-12)
             lam0, y0 = snlp.duals_to_scaled(lam_u, y_u)
             lam0 = torch.clamp(lam0, min=1e-10)
-        res = solve(snlp.cost, snlp.eq, snlp.ineq, snlp.to_scaled(z0), self.config,
-                    s0=s0, lam0=lam0, y0=y0, relax_mask=self._relax_mask,
-                    newton_step_fn=step_fn)
+        return snlp, init_state(snlp.cost, snlp.eq, snlp.ineq, snlp.to_scaled(z0), self.config,
+                                y0, lam0, s0)
+
+    def finish(self, snlp: ScaledNLP, state: IPState) -> LandingSolution:
+        """The LandingSolution of the lanes at ``state``."""
+        return self._solution(snlp, self.program(snlp).finish(state))
+
+    def _solution(self, snlp: ScaledNLP, res) -> LandingSolution:
+        prob = self.problem
         z = snlp.from_scaled(res.z)
         v = prob.unpack(z)
         lam_u, y_u = snlp.duals_from_scaled(res.lam, res.y)
@@ -250,6 +242,14 @@ class LandingSolver:
             constr_viol=res.constr_viol, cost=res.cost,
             s=snlp.slacks_from_scaled(res.s), lam=lam_u, y=y_u,
         )
+
+    def _solve_impl(self, q_init, qd_init, z0=None, warm=None) -> LandingSolution:
+        """Solve B scenarios (see :meth:`start` for z0 and warm)."""
+        snlp, state = self.start(q_init, qd_init, z0, warm)
+        res = solve(snlp.cost, snlp.eq, snlp.ineq, state.z, self.config, state0=state,
+                    relax_mask=self._relax_mask,
+                    newton_step_fn=self._newton_step(snlp.theta, snlp))
+        return self._solution(snlp, res)
 
     def init_lanes(self, q_init, qd_init, variant=None):
         """(ScaledNLP, fresh IPState) of B scenarios, without stepping."""

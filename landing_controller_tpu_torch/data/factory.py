@@ -50,7 +50,7 @@ def generate_training_data(cascade_fn, n_samples: int, generator: torch.Generato
     n_done = 0
     while n_done < n_samples:
         b = min(batch_size, n_samples - n_done)
-        q0s, qd0s = sample_drop_scenario(b, generator)
+        q0s, qd0s = sample_drop_scenario(b, generator, device="cpu")
         sol2, _ = cascade_fn(q0s, qd0s)
         ok = sol2.converged
         ok_host = ok.cpu()
@@ -79,7 +79,7 @@ def generate_training_data_streaming(
         generator = torch.Generator().manual_seed(0)
 
     def sampler(n):
-        q, qd = sample_drop_scenario(n, generator)
+        q, qd = sample_drop_scenario(n, generator, device="cpu")
         return q.numpy(), qd.numpy()
 
     mi = solver.config.max_iter

@@ -35,6 +35,9 @@ class RobotParams:
 
     name: str
     body_mass: float
+    body_length: float  # the body box of the viewers (viz.animate)
+    body_width: float
+    body_height: float
     body_inertia: np.ndarray  # 6x6 spatial
     abad_inertia: np.ndarray
     hip_inertia: np.ndarray
@@ -79,6 +82,9 @@ def _mc3d() -> RobotParams:
     return RobotParams(
         name="mc3D",
         body_mass=body_mass,
+        body_length=0.19 * 2,
+        body_width=0.049 * 2,
+        body_height=0.05 * 2,
         body_inertia=_spatial_inertia_np(body_mass, [0, 0, 0], body_rot),
         abad_inertia=_spatial_inertia_np(0.54, [0, 0.036, 0], abad_rot),
         hip_inertia=_spatial_inertia_np(0.634, [0, 0.016, -0.02], hip_rot),
@@ -109,6 +115,7 @@ def _mcv3d() -> RobotParams:
         base,
         name="mcv3D",
         body_mass=body_mass,
+        body_length=0.20275 * 2,
         body_inertia=_spatial_inertia_np(body_mass, [0, 0, 0], body_rot),
         hip_srbm_location=np.array(
             [

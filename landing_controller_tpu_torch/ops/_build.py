@@ -21,7 +21,9 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+# where the libraries are built and looked up (runtime.artifact.enable_persistent_cache)
+BUILD_DIR = DEFAULT_BUILD_DIR
 # -Xptxas -v: the compiler output then lists each kernel's registers,
 # shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -194,13 +194,31 @@ def _qd_inverse_cuda(S, np_: int, nd: int):
     return out
 
 
+def _check_device(x, name: str):
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {x.device}")
+
+
+def _empty_outputs(x):
+    """The fake implementation of both ops: the shapes of (inverse, ok)."""
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty(x.shape[:1], dtype=torch.bool))
+
+
+# qd_inverse and chol_inverse are registered custom ops, so that a traced or
+# saved program holds one node that names the kernel: on a CUDA tensor it
+# launches the kernel (or raises), on a CPU tensor it runs the plain version
+_qd_inverse_op = torch.library.custom_op(
+    "landing_controller_tpu_torch::qd_inverse", mutates_args=(), device_types="cuda",
+    schema="(Tensor S, int np_, int nd) -> (Tensor, Tensor)")(_qd_inverse_cuda)
+_qd_inverse_op.register_kernel("cpu")(qd_inverse_ref)
+_qd_inverse_op.register_fake(lambda S, np_, nd: _empty_outputs(S))
+
+
 def qd_inverse(S, np_: int, nd: int):
     """Batched quasi-definite block inverse (m, BS, BS) -> (Sinv, ok (m,) bool)."""
-    if S.device.type == "cuda":
-        return _qd_inverse_cuda(S, np_, nd)
-    if S.device.type == "cpu":
-        return qd_inverse_ref(S, np_, nd)
-    raise ValueError(f"qd_inverse runs on cuda or cpu tensors, got {S.device}")
+    _check_device(S, "qd_inverse")
+    return _qd_inverse_op(S, np_, nd)
 
 
 qd_inverse.launches = 0
@@ -226,7 +244,8 @@ def chol_inverse_ref(A):
     nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
     Ainv = torch.cholesky_solve(eye, torch.where(ok[:, None, None], L, nan))
-    return 0.5 * (Ainv + Ainv.transpose(1, 2)), ok
+    # contiguous, as the kernel's output (the custom op's fake implementation)
+    return (0.5 * (Ainv + Ainv.transpose(1, 2))).contiguous(), ok
 
 
 def _chol_inverse_cuda(A):
@@ -241,13 +260,17 @@ def _chol_inverse_cuda(A):
     return out
 
 
+_chol_inverse_op = torch.library.custom_op(
+    "landing_controller_tpu_torch::chol_inverse", mutates_args=(), device_types="cuda",
+    schema="(Tensor A) -> (Tensor, Tensor)")(_chol_inverse_cuda)
+_chol_inverse_op.register_kernel("cpu")(chol_inverse_ref)
+_chol_inverse_op.register_fake(_empty_outputs)
+
+
 def chol_inverse(A):
     """Batched SPD inverse (m, n, n) -> (Ainv, ok (m,) bool)."""
-    if A.device.type == "cuda":
-        return _chol_inverse_cuda(A)
-    if A.device.type == "cpu":
-        return chol_inverse_ref(A)
-    raise ValueError(f"chol_inverse runs on cuda or cpu tensors, got {A.device}")
+    _check_device(A, "chol_inverse")
+    return _chol_inverse_op(A)
 
 
 chol_inverse.launches = 0

@@ -79,7 +79,7 @@ def monte_carlo_envelope(
         generator = torch.Generator().manual_seed(seed)
 
         def sample():
-            q, qd = sample_drop_scenario(chunk_local, generator)
+            q, qd = sample_drop_scenario(chunk_local, generator, device="cpu")
             return q.numpy(), qd.numpy()
 
     def sync():

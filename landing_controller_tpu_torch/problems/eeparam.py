@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..dynamics.rotations import bmat_f, bmat_f_dot, rpy_to_rot_zyx
 from ..models import srbm_constants
 
@@ -121,9 +122,11 @@ class EEParamVars:
     posn: torch.Tensor  # (B, 4, n_posn_splines, 3, 4)
 
 
-def default_eeparam_params(dtype=torch.float32, device="cpu", batch: int = 1) -> EEParamParams:
+def default_eeparam_params(dtype=torch.float32, device="cuda", batch: int = 1) -> EEParamParams:
     """The reference's parameter values (quadruped_SRBM_eeParam.m:412-447)
-    for ``batch`` identical scenarios."""
+    for ``batch`` identical scenarios, on the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
     mass, ib, ib_inv = srbm_constants("mc3D")
 
     def f(v):
@@ -196,7 +199,7 @@ class EEParamProblem:
         }
         self.n_vars = int(sum(np.prod(s) for s in self._shapes.values()))
         z = torch.full((1, self.n_vars), 0.1, dtype=torch.float64)
-        theta = default_eeparam_params(torch.float64)
+        theta = default_eeparam_params(torch.float64, device="cpu")
         self.n_eq = self.eq(z, theta).shape[-1]
         self.n_ineq = self.ineq(z, theta).shape[-1]
 

@@ -1,8 +1,7 @@
-"""Host-side runtime: the native (C++) scenario pool and result log.
+"""Host-side runtime: the native (C++) scenario pool and result log, saved
+solvers (``torch.export`` programs) and the kernels' build cache."""
 
-The JAX package's durable compiled-solver artifacts (``runtime/artifact.py``)
-are not ported yet."""
-
+from .artifact import enable_persistent_cache, load_solver, save_solver
 from .native import (
     NativeScenarioPool,
     ResultLog,
@@ -12,6 +11,9 @@ from .native import (
 )
 
 __all__ = [
+    "enable_persistent_cache",
+    "load_solver",
+    "save_solver",
     "NativeScenarioPool",
     "ResultLog",
     "native_available",

@@ -318,60 +318,55 @@ def _ring_set(hist, it, val, max_iter):
     return hist.scatter(1, (it % max_iter)[:, None], val[:, None])
 
 
-def solve(
-    cost_fn: Callable,
-    eq_fn: Callable,
-    ineq_fn: Callable,
-    z0: torch.Tensor,
-    config: IPConfig = IPConfig(),
-    y0=None,
-    lam0=None,
-    s0=None,
-    relax_mask=None,
-    newton_step_fn=None,
-    state0: "IPState | None" = None,
-    segment_iters: int | None = None,
-    return_state: bool = False,
-):
-    """Solve B NLP instances (z0: (B, n)); see the module docstring.
+@dataclasses.dataclass(frozen=True)
+class IPProgram:
+    """The iteration and the end of a solve over :class:`IPState` (a fresh
+    state comes from :func:`init_state`), plain functions of tensors that a
+    saved solver traces: ``body(st)`` is one iteration of every lane,
+    ``finish(st)`` the final diagnostics as an :class:`IPResult`."""
 
-    Segmented mode: pass ``state0`` (from a previous call with
-    ``return_state=True``) to resume, and ``segment_iters=K`` to run at most
-    K further iterations per lane (``segment_iters=0`` with
-    ``return_state`` just initializes)."""
+    body: Callable
+    finish: Callable
+    config: IPConfig
+
+    def step(self, st: IPState) -> IPState:
+        """One iteration of the lanes still running (below ``max_iter`` and
+        not done), as a full solve takes it; the others keep their state."""
+        return tree_where((st.it < self.config.max_iter) & ~st.done, self.body(st), st)
+
+    def settle(self, st: IPState, result: IPResult) -> IPState:
+        """``st`` with the lanes that converged or reached the iteration cap
+        marked done: a segmented solve's state between segments."""
+        return dataclasses.replace(
+            st, done=st.done | result.converged | (st.it >= self.config.max_iter))
+
+
+def ip_program(cost_fn: Callable, eq_fn: Callable, ineq_fn: Callable, config: IPConfig,
+               relax_mask=None, newton_step_fn=None) -> IPProgram:
+    """The :class:`IPProgram` of B NLP instances (see :func:`solve`)."""
     cfg = config
     if newton_step_fn is None:
         newton_step_fn = make_dense_newton_step(cost_fn, eq_fn, ineq_fn, cfg)
-    dtype, dev = z0.dtype, z0.device
-    B = z0.shape[0]
     br = cfg.bound_relax_factor
     nls = cfg.n_linesearch
     mask = None
     if relax_mask is not None and cfg.relax_scale > 0.0:
-        mask = torch.as_tensor(relax_mask, dtype=dtype, device=dev)
+        mask = torch.as_tensor(relax_mask)
 
     def relax(g_true, mu_rows):
         if mask is None:
             return g_true
         off = cfg.relax_scale * torch.clamp(mu_rows - cfg.mu_min, min=0.0)
-        return g_true + off[:, None] * mask
-
-    ones_b = torch.ones(B, dtype=dtype, device=dev)
-    big = torch.finfo(dtype).max / 4
+        return g_true + off[:, None] * mask.to(g_true)
 
     def jvp_ineq(z, dz):
         return jvp(ineq_fn, (z,), (dz,))[1]
 
-    if state0 is None:
-        state0 = _init_state(cost_fn, eq_fn, ineq_fn, z0, cfg, y0, lam0, s0)
-    st = state0
-    if segment_iters is None:
-        it_stop = torch.full_like(st.it, cfg.max_iter)
-    else:
-        it_stop = torch.clamp(st.it + segment_iters, max=cfg.max_iter)
-
     def body(st: IPState) -> IPState:
         z, s, lam, y, mu = st.z, st.s, st.lam, st.y, st.mu
+        B, dtype, dev = z.shape[0], z.dtype, z.device
+        ones_b = torch.ones(B, dtype=dtype, device=dev)
+        big = torch.finfo(dtype).max / 4
         mu_c = mu[:, None]
         f, vjp_f = vjp(cost_fn, z)
         E, vjp_e = vjp(eq_fn, z)
@@ -641,6 +636,57 @@ def solve(
             theta_max=st.theta_max,
         )
 
+    def finish(st: IPState) -> IPResult:
+        """Final diagnostics on the true constraints."""
+        z, s, lam, y = st.z, st.s, st.lam, st.y
+        f, vjp_f = vjp(cost_fn, z)
+        E, vjp_e = vjp(eq_fn, z)
+        g_raw, vjp_g = vjp(ineq_fn, z)
+        g = g_raw + br
+        r_d = vjp_f(torch.ones_like(f))[0] + vjp_e(y)[0] - vjp_g(lam)[0]
+        kkt_err0, _ = _kkt_error_rd(r_d, E, g, s, lam, y, 0.0)
+        viol = torch.maximum(E.abs().amax(-1), torch.clamp(-g, min=0.0).amax(-1))
+        converged = (kkt_err0 <= cfg.tol) & (viol <= cfg.constr_viol_tol)
+        return IPResult(
+            z=z, s=s, lam=lam, y=y, converged=converged, iterations=st.it,
+            kkt_error=kkt_err0, constr_viol=viol, cost=f,
+            kkt_history=st.kkt_hist, mu_history=st.mu_hist, alpha_history=st.alpha_hist,
+        )
+
+    return IPProgram(body=body, finish=finish, config=cfg)
+
+
+def solve(
+    cost_fn: Callable,
+    eq_fn: Callable,
+    ineq_fn: Callable,
+    z0: torch.Tensor,
+    config: IPConfig = IPConfig(),
+    y0=None,
+    lam0=None,
+    s0=None,
+    relax_mask=None,
+    newton_step_fn=None,
+    state0: "IPState | None" = None,
+    segment_iters: int | None = None,
+    return_state: bool = False,
+):
+    """Solve B NLP instances (z0: (B, n)); see the module docstring.
+
+    Segmented mode: pass ``state0`` (from a previous call with
+    ``return_state=True``) to resume, and ``segment_iters=K`` to run at most
+    K further iterations per lane (``segment_iters=0`` with
+    ``return_state`` just initializes)."""
+    cfg = config
+    prog = ip_program(cost_fn, eq_fn, ineq_fn, cfg, relax_mask, newton_step_fn)
+    st = state0
+    if st is None:
+        st = init_state(cost_fn, eq_fn, ineq_fn, z0, cfg, y0, lam0, s0)
+    if segment_iters is None:
+        it_stop = torch.full_like(st.it, cfg.max_iter)
+    else:
+        it_stop = torch.clamp(st.it + segment_iters, max=cfg.max_iter)
+
     def running(st):
         return (st.it < it_stop) & ~st.done
 
@@ -651,35 +697,20 @@ def solve(
     taken = 0
     while taken < n_steps:
         for _ in range(min(chunk, n_steps - taken)):
-            st = tree_where(running(st), body(st), st)
+            st = tree_where(running(st), prog.body(st), st)
         taken += chunk
         if segment_iters is None and not bool(running(st).any()):
             break
 
-    # final diagnostics (true constraints)
-    z, s, lam, y = st.z, st.s, st.lam, st.y
-    f, vjp_f = vjp(cost_fn, z)
-    E, vjp_e = vjp(eq_fn, z)
-    g_raw, vjp_g = vjp(ineq_fn, z)
-    g = g_raw + br
-    r_d = vjp_f(ones_b)[0] + vjp_e(y)[0] - vjp_g(lam)[0]
-    kkt_err0, _ = _kkt_error_rd(r_d, E, g, s, lam, y, 0.0)
-    viol = torch.maximum(E.abs().amax(-1), torch.clamp(-g, min=0.0).amax(-1))
-    converged = (kkt_err0 <= cfg.tol) & (viol <= cfg.constr_viol_tol)
-    result = IPResult(
-        z=z, s=s, lam=lam, y=y, converged=converged, iterations=st.it,
-        kkt_error=kkt_err0, constr_viol=viol, cost=f,
-        kkt_history=st.kkt_hist, mu_history=st.mu_hist, alpha_history=st.alpha_hist,
-    )
+    result = prog.finish(st)
     if return_state:
         # a converged/stalled lane stays frozen across later segments; a
         # lane at the iteration cap can never progress again: mark it done
-        st = dataclasses.replace(st, done=st.done | converged | (st.it >= cfg.max_iter))
-        return result, st
+        return result, prog.settle(st, result)
     return result
 
 
-def _init_state(cost_fn, eq_fn, ineq_fn, z0, cfg: IPConfig, y0, lam0, s0) -> IPState:
+def init_state(cost_fn, eq_fn, ineq_fn, z0, cfg: IPConfig, y0=None, lam0=None, s0=None) -> IPState:
     """Fresh IPState of B lanes at z0 (barrier-consistent slacks, CG
     least-squares equality duals)."""
     dtype, dev = z0.dtype, z0.device
@@ -778,4 +809,5 @@ def solve_batch(cost_fn, eq_fn, ineq_fn, z0_batch, config: IPConfig = IPConfig()
     return solve(bind(cost_fn), bind(eq_fn), bind(ineq_fn), z0_batch, config, **solve_kw)
 
 
-__all__ = ["IPConfig", "IPResult", "IPState", "make_dense_newton_step", "solve", "solve_batch"]
+__all__ = ["IPConfig", "IPProgram", "IPResult", "IPState", "init_state", "ip_program",
+           "make_dense_newton_step", "solve", "solve_batch"]

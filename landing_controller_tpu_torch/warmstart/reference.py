@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..dynamics.rotations import rpy_to_rot_xyz
 from ..models import srbm_constants
 from ..problems.landing import LandingParams, LandingVars
@@ -47,14 +48,16 @@ def drop_scenario_from_draws(rpy, omega, v):
 
 
 def sample_drop_scenario(n: int, generator: torch.Generator | None = None,
-                         dtype=torch.float32, device="cpu"):
+                         dtype=torch.float32, device="cuda"):
     """n random drop conditions -> (q_init (n, 6), qd_init (n, 6)).
 
     Sampling ranges of the production driver (landing_optimization.m:207-218):
     roll, yaw ~ U(+-0.25), pitch ~ U(+-pi/3), omega ~ U(+-0.5), v_xy ~ U(+-1),
     v_z ~ -U(0.5, 5); the height by :func:`drop_scenario_from_draws`.  The
     draws come from ``generator`` (a fresh one seeded 0 when None) on its
-    own device; the result is moved to ``device``."""
+    own device; the result is moved to ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     u = torch.rand((n, 9), generator=generator, dtype=dtype, device=generator.device)

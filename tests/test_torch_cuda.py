@@ -345,3 +345,28 @@ def test_f64_solver_goes_through_the_kernel(dev):
     s_cpu = LandingSolver("srbm_lcp", dtype=torch.float64, device="cpu").solve(q0, qd0)
     assert bool(s_gpu.converged) and bool(s_cpu.converged)
     assert abs(float(s_gpu.cost) - float(s_cpu.cost)) <= 1e-6 * abs(float(s_cpu.cost))
+
+
+def test_custom_ops_launch_the_kernels_and_trace(dev):
+    """The registered ops launch the kernels on the card (one count per
+    call), the launchers' input errors keep their types through the
+    dispatcher, and a fake-tensor trace launches nothing."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(1), 8, 6, 4), device=dev)
+    A = S[:, :6, :6].contiguous()
+    for op, fn, args in (("qd_inverse", qd_inverse, (S, 6, 4)), ("chol_inverse", chol_inverse, (A,))):
+        before = fn.launches
+        out, ok = getattr(torch.ops.landing_controller_tpu_torch, op)(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and out.is_contiguous() and bool(ok.all())
+        torch.library.opcheck(getattr(torch.ops.landing_controller_tpu_torch, op).default, args,
+                              test_utils=("test_schema", "test_faketensor"))
+        before = fn.launches
+        gm = make_fx(lambda *a: fn(*a), tracing_mode="fake")(*args)
+        assert f"landing_controller_tpu_torch.{op}.default" in [str(n.target) for n in gm.graph.nodes]
+        assert fn.launches == before
+    with pytest.raises(TypeError):
+        torch.ops.landing_controller_tpu_torch.qd_inverse(S.half(), 6, 4)
+    with pytest.raises(ValueError):
+        torch.ops.landing_controller_tpu_torch.qd_inverse(S, 5, 4)

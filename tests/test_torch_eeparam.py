@@ -91,7 +91,7 @@ def test_chain_eval_on_interval_boundaries_matches_jax(t):
 
 def test_horizon_consistency_guard():
     prob = t_ee.eeparam_problem()
-    theta = t_ee.default_eeparam_params(batch=3)
+    theta = t_ee.default_eeparam_params(device="cpu", batch=3)
     prob.check_params(theta)  # consistent: no raise
     bad = dataclasses.replace(theta, horizon=torch.tensor([0.8, 0.6, 0.8]))
     with pytest.raises(ValueError, match="horizon"):
@@ -106,7 +106,7 @@ def _params_pair(heights, vzs):
     base_j = j_ee.default_eeparam_params(jnp.float64)
     th_j = [dataclasses.replace(base_j, r_init=jnp.asarray([0.0, 0.0, h]),
                                 rdot_init=jnp.asarray([0.0, 0.0, vz])) for h, vz in zip(heights, vzs)]
-    th_t = t_ee.default_eeparam_params(torch.float64, batch=len(heights))
+    th_t = t_ee.default_eeparam_params(torch.float64, "cpu", batch=len(heights))
     th_t = dataclasses.replace(
         th_t, r_init=torch.tensor([[0.0, 0.0, h] for h in heights], dtype=torch.float64),
         rdot_init=torch.tensor([[0.0, 0.0, vz] for vz in vzs], dtype=torch.float64))

@@ -42,7 +42,7 @@ def test_first_five_iterates_match_jax():
     base_j = j_ee.default_eeparam_params(jax.numpy.float64)
     th_j = dataclasses.replace(base_j, r_init=jax.numpy.asarray([0.0, 0.0, 0.55]),
                                rdot_init=jax.numpy.asarray([0.0, 0.0, -1.2]))
-    th_t = dataclasses.replace(t_ee.default_eeparam_params(torch.float64),
+    th_t = dataclasses.replace(t_ee.default_eeparam_params(torch.float64, "cpu"),
                                r_init=torch.tensor([[0.0, 0.0, 0.55]], dtype=torch.float64),
                                rdot_init=torch.tensor([[0.0, 0.0, -1.2]], dtype=torch.float64))
 

@@ -111,7 +111,7 @@ def streamed():
 def test_streaming_rows_are_the_solvers_solutions(streamed):
     s, data, _ = streamed
     n = 4
-    q, qd = sample_drop_scenario(n, torch.Generator().manual_seed(0))
+    q, qd = sample_drop_scenario(n, torch.Generator().manual_seed(0), device="cpu")
     # the first attempt's and the retry family's solves of every scenario, in one batch
     theta = s.build_params(q, qd)
     z0 = torch.cat([s._cold_guess(theta, 0), s._cold_guess(theta, 1)])
@@ -192,7 +192,7 @@ def test_cascade_rows_are_the_cascades_solutions(monkeypatch):
     data = generate_training_data(cascade, 4, generator=torch.Generator().manual_seed(1),
                                   batch_size=4)
     (q, qd, sol2), = calls
-    want_q, want_qd = sample_drop_scenario(4, torch.Generator().manual_seed(1))
+    want_q, want_qd = sample_drop_scenario(4, torch.Generator().manual_seed(1), device="cpu")
     assert torch.equal(q, want_q) and torch.equal(qd, want_qd)
     idx = _rows_of(data, q, qd)
     assert idx == [int(i) for i in torch.nonzero(sol2.converged)[:, 0]] and len(idx) >= 1
@@ -217,7 +217,7 @@ def test_cascade_factory_batches(monkeypatch):
                                   generator=torch.Generator().manual_seed(2), batch_size=4)
     assert [c[0].shape[0] for c in calls] == [4, 4, 2]
     g = torch.Generator().manual_seed(2)
-    q = torch.cat([sample_drop_scenario(b, g)[0] for b in (4, 4, 2)])
+    q = torch.cat([sample_drop_scenario(b, g, device="cpu")[0] for b in (4, 4, 2)])
     assert torch.equal(torch.cat([c[0] for c in calls]), q)
     assert 0 < len(data["X"]) < 10
     _assert_same_dict(data, _jax_factory_on(calls, 10, 4, monkeypatch))

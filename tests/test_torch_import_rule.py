@@ -3,7 +3,8 @@
 A fresh interpreter with ``jax`` and ``landing_controller_tpu`` blocked in
 ``sys.modules`` imports every module of landing_controller_tpu_torch and
 the repo-root ``chip_smoke.py``; the sources are also searched for such
-imports.
+imports, and the package's sources for a string that names a path under
+the JAX package's directory (the port reads its own data files).
 """
 
 import os
@@ -33,7 +34,8 @@ def test_port_imports_without_jax():
                  "parallel.multihost", "parallel.montecarlo", "runtime.native",
                  "analysis.warmstart_bench", "analysis.nn_validation",
                  "analysis.foot_positions", "dynamics.spatial", "dynamics.quaternion",
-                 "dynamics.featherstone", "ops.branch_sparsity", "analysis.vbl", "_device"):
+                 "dynamics.featherstone", "ops.branch_sparsity", "analysis.vbl", "_device",
+                 "runtime.artifact", "viz.plots", "viz.animate", "viz.html_viewer"):
         assert f"landing_controller_tpu_torch.{name}" in modules
     code = "\n".join(
         [
@@ -62,8 +64,29 @@ def test_port_sources_name_no_jax():
         files += [os.path.join(d, f) for f in fs if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     assert sum(f.endswith((".cu", ".cuh")) for f in files) == 3
     assert sum(f.endswith(".cpp") for f in files) == 1  # the native scenario pool
+    # a quoted string that starts with the JAX package's directory: a path
+    # into it (chip_smoke.py names the TPU kernels' file:line it replaces)
+    jax_path = re.compile(r"[\"']landing_controller_tpu[\"'/]")
     for path in files:
         with open(path) as f:
             src = f.read()
         hits = [m.group(0) for m in pattern.finditer(src)]
+        if path.startswith(PKG_DIR):
+            hits += [m.group(0) for m in jax_path.finditer(src)]
         assert not hits, (path, hits)
+
+
+def test_port_keeps_its_own_warm_start_network():
+    """The committed network is copied into the port byte for byte, and the
+    solvers' default ``nn_path`` is the port's copy."""
+    import hashlib
+
+    from landing_controller_tpu_torch.api import DEFAULT_NN_PATH
+
+    def sha256(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    assert DEFAULT_NN_PATH == os.path.join(PKG_DIR, "data", "nn_TO_landing.npz")
+    assert sha256(DEFAULT_NN_PATH) == sha256(
+        os.path.join(ROOT, "landing_controller_tpu", "data", "nn_TO_landing.npz"))

@@ -22,10 +22,13 @@ import torch
 
 from landing_controller_tpu.warmstart import nn as jnn
 from landing_controller_tpu_torch import convert
+from landing_controller_tpu_torch._tree import tree_flatten
 from landing_controller_tpu_torch.analysis import default_vbl_weights
 from landing_controller_tpu_torch.dynamics.featherstone import composite_body_inertia
 from landing_controller_tpu_torch.models import get_robot_model
+from landing_controller_tpu_torch.problems import default_eeparam_params
 from landing_controller_tpu_torch.warmstart import nn
+from landing_controller_tpu_torch.warmstart.reference import sample_drop_scenario
 
 # the port's ops are small: one intra-op thread per test process keeps
 # parallel test workers from oversubscribing the cores
@@ -205,9 +208,10 @@ def test_warmstart_files_are_interchangeable(tmp_path):
 
 def test_loaders_default_to_the_card(tmp_path):
     """build_mlp, init_mlp, stats_from_numpy, load_warmstart, the convert
-    helpers, analysis.default_vbl_weights and composite_body_inertia of an
-    array take the card unless given device="cpu"; without one they raise,
-    as LandingSolver does."""
+    helpers, analysis.default_vbl_weights, composite_body_inertia of an
+    array, problems.default_eeparam_params and
+    warmstart.reference.sample_drop_scenario take the card unless given
+    device="cpu"; without one they raise, as LandingSolver does."""
     stats = {f: np.zeros(3) for f in FIELDS}
     mlp = nn.init_mlp(torch.Generator().manual_seed(1), hidden=4, depth=1, device="cpu")
     path = str(tmp_path / "ws.npz")
@@ -221,9 +225,11 @@ def test_loaders_default_to_the_card(tmp_path):
              lambda **kw: convert.mlp_from_numpy(weights, biases, st, **kw),
              lambda **kw: default_vbl_weights(**kw),
              lambda **kw: composite_body_inertia(model, model.q_home, **kw),
+             lambda **kw: default_eeparam_params(batch=2, **kw),
+             lambda **kw: sample_drop_scenario(3, torch.Generator().manual_seed(0), **kw),
              lambda **kw: convert.landing_params_from_numpy(
                  {"x_ref": np.zeros((3, 12))}, **kw)]
-    for call in calls[:7]:
+    for call in calls[:-1]:
         out = call(device="cpu")
         leaf = out[0] if isinstance(out, tuple) else out
         if isinstance(leaf, torch.nn.Module):
@@ -231,7 +237,7 @@ def test_loaders_default_to_the_card(tmp_path):
         elif isinstance(leaf, torch.Tensor):
             assert leaf.device.type == "cpu"
         else:
-            assert getattr(leaf, FIELDS[0]).device.type == "cpu"
+            assert all(t.device.type == "cpu" for _, t in tree_flatten(leaf))
     if torch.cuda.is_available():
         return
     for call in calls:

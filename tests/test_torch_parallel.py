@@ -93,7 +93,8 @@ def test_two_gloo_ranks_match_jax(tmp_path):
     # each rank's drops, from its seed: JAX solves them while the ranks run
     ics = []
     for r in range(2):
-        q, qd = sample_drop_scenario(3, torch.Generator().manual_seed(SEED * 1000003 + r))
+        q, qd = sample_drop_scenario(3, torch.Generator().manual_seed(SEED * 1000003 + r),
+                                     device="cpu")
         ics.append(np.concatenate([q.numpy(), qd.numpy()], 1))
     ics = np.concatenate(ics)
     jsolver = JaxLandingSolver("srbm_lcp", n_knots=N, dtype=jnp.float64, guess="ballistic",
@@ -145,7 +146,7 @@ def test_one_process_mesh_and_sharded_solve():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             make_scenario_mesh()  # cuda:LOCAL_RANK needs a card
-    q, qd = sample_drop_scenario(3, torch.Generator().manual_seed(0))
+    q, qd = sample_drop_scenario(3, torch.Generator().manual_seed(0), device="cpu")
     qg = global_scenario_batch(q.numpy(), mesh)
     assert torch.equal(qg, q) and np.array_equal(local_shards(qg), q.numpy())
     solver = _solver(max_iter=4)

@@ -123,3 +123,28 @@ def test_qd_inverse_rejects_other_devices():
     S = torch.zeros((1, 8, 8), device="meta")
     with pytest.raises(ValueError):
         qd_inverse(S, 5, 3)
+
+
+@pytest.mark.parametrize("op", ["qd_inverse", "chol_inverse"])
+def test_kernels_are_custom_ops_with_fake_implementations(op):
+    """Both block inverses are registered custom ops (torch.library.opcheck
+    holds the schema, the fake implementation and the CPU implementation
+    against one another); a fake-tensor trace records one node that names
+    the op, and launches nothing."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from landing_controller_tpu_torch.ops import chol_inverse
+
+    S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(3), 4, 5, 3))
+    if op == "qd_inverse":
+        fn, args = qd_inverse, (S, 5, 3)
+    else:
+        fn, args = chol_inverse, (S[:, :5, :5].contiguous(),)
+    torch.library.opcheck(getattr(torch.ops.landing_controller_tpu_torch, op).default, args)
+    launches = fn.launches
+    gm = make_fx(lambda *a: fn(*a), tracing_mode="fake")(*args)
+    calls = [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
+    assert calls.count(f"landing_controller_tpu_torch.{op}.default") == 1
+    out, ok = getattr(torch.ops.landing_controller_tpu_torch, op)(*args)
+    assert out.shape == args[0].shape and ok.shape == (4,) and ok.dtype == torch.bool
+    assert fn.launches == launches

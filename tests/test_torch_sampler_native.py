@@ -70,10 +70,11 @@ def test_drop_transform_gives_jax_heights():
 
 def test_sampler_ranges_and_generator_stream():
     g = torch.Generator().manual_seed(5)
-    q, qd = sample_drop_scenario(256, g, dtype=torch.float64)
-    q2, _ = sample_drop_scenario(256, g, dtype=torch.float64)
+    q, qd = sample_drop_scenario(256, g, dtype=torch.float64, device="cpu")
+    q2, _ = sample_drop_scenario(256, g, dtype=torch.float64, device="cpu")
     assert not torch.equal(q, q2)  # the generator's stream goes on
-    q3, qd3 = sample_drop_scenario(256, torch.Generator().manual_seed(5), dtype=torch.float64)
+    q3, qd3 = sample_drop_scenario(256, torch.Generator().manual_seed(5), dtype=torch.float64,
+                                    device="cpu")
     assert torch.equal(q, q3) and torch.equal(qd, qd3)
     assert q.dtype == torch.float64 and q.shape == qd.shape == (256, 6)
     assert (q[:, :2] == 0).all()
@@ -85,9 +86,9 @@ def test_sampler_ranges_and_generator_stream():
         R = np.asarray(j_rot_xyz(jnp.asarray(q[i, 3:6].numpy())))
         z0 = 0.35 + abs((HIP_SRBM @ R.T)[:, 2].min()) + abs(DT_PRODUCTION[0] * float(qd[i, 5]))
         assert float(q[i, 2]) == pytest.approx(z0, abs=1e-12)
-    q0, _ = sample_drop_scenario(4)
+    q0, _ = sample_drop_scenario(4, device="cpu")
     assert q0.dtype == torch.float32 and torch.equal(
-        q0, sample_drop_scenario(4, torch.Generator().manual_seed(0))[0])
+        q0, sample_drop_scenario(4, torch.Generator().manual_seed(0), device="cpu")[0])
 
 
 def _records(n, rng):
@@ -164,7 +165,7 @@ def test_default_sampler_draws_drops_from_seed_0():
     q, qd = ss.sampler(3)
     q2, qd2 = ss.sampler(3)
     g = torch.Generator().manual_seed(0)
-    for got, want in ((q, sample_drop_scenario(3, g)[0]), (q2, sample_drop_scenario(3, g)[0])):
+    for got, want in ((q, sample_drop_scenario(3, g, device="cpu")[0]), (q2, sample_drop_scenario(3, g, device="cpu")[0])):
         np.testing.assert_array_equal(got, want.numpy())
     assert isinstance(qd, np.ndarray) and qd.dtype == np.float32
 
