@@ -21,14 +21,15 @@ Phases (any failure exits nonzero, before the result line):
 5. checks of its output: kernel parity on the real KKT blocks captured from
    several block-inverse calls of the run, feasibility of the harvested
    solutions, and one gentle drop solved on the card and on the CPU (plain
-   versions) with agreeing costs;
+   versions) with agreeing costs (this one beside phases 10-20);
 6. the kinodynamic path: ``LandingSolver("kinodynamic")`` at N=21 with the
    family's settings (monotone barrier rule, hybrid Hessian, refine 3,
    reference guess), ``solve_batch`` on 128 drop scenarios, with launch
    counts, launch sizes, peak memory, feasibility of the converged
    solutions and kernel parity on its captured 84-wide KKT blocks;
 7. the srbm variants, one scenario each: sliding, contact_scheduled (with
-   kernel parity on its 76-wide blocks) and ccc (41 blocks);
+   kernel parity on its 76-wide blocks) and ccc (41 blocks), beside phases
+   10-20;
 8. the ``ops.chol_inverse`` entry point on the SPD sub-blocks of the
    captured KKT blocks of both families: its launch count, then the kernel
    against its plain version and an f64 inverse;
@@ -52,7 +53,7 @@ Phases (any failure exits nonzero, before the result line):
    drops), then on the card the normalization statistics, 400 epochs of
    training, the network saved under ``build/`` and read back, a solver
    that takes it as its guess, and ``nn_vs_nlp`` on one drop;
-15. the four-regime warm-start comparison on the freshly trained network;
+15. the four-regime warm-start comparison on the committed network;
 16. ``monte_carlo_envelope`` of srbm_lcp (64 drops) with the native
    scenario pool and a result log under ``build/``, read back; then
    ``sweep_foot_positions`` over 8 values of v_x on the ccc solver; two
@@ -76,11 +77,19 @@ Phases (any failure exits nonzero, before the result line):
    StreamingSolver's step saved and loaded (``export_step``,
    ``load_step``) and its run held against phase 4's, a mismatched key
    refused; ``export_html`` and ``motor_voltages`` of a converged
-   kinodynamic trajectory of phase 6.
+   kinodynamic trajectory of phase 6;
+21. the entry points: ``python -m landing_controller_tpu_torch.bench`` with
+   its defaults (the srbm_lcp stream at B=64 over a pool of 384, after its
+   warm-up pool) in a process of its own, right after phase 9 and alone on
+   the card, its last line read and held to phase 4's convergence floor
+   and to 6 ``qd_inverse`` launches per batch iteration; then, beside
+   phases 10-20, ``tools.montecarlo_100k --n 256 --chunk 128`` (two pools
+   aggregated into one record) and ``examples.solve_landing --cascade
+   --plot`` (the HTML viewer) under ``build/``.
 
-Phases 10-20 run side by side, one spawned process each (phase 15 waits for
-the network that phase 14 saves); their wall times include one another's
-share of the card and of the host's cores.
+Phases 7, 10-20 and phase 21's two side runs go side by side with phase
+5's gentle drop, one spawned process each; their wall times include one
+another's share of the card and of the host's cores.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the ``{"ok": true, "device": ...}`` line.
@@ -110,6 +119,7 @@ H100_F32_FLOPS = 67e12
 H100_F64_FLOPS = 34e12
 
 N_SCENARIOS = 64  # the srbm_lcp path: one pool
+CONVERGENCE_FLOOR = 0.6  # the srbm_lcp path's, in phases 4 and 21
 N_KINO = 128  # the kinodynamic path's batch
 N_DENSE = 32  # phase 10: kinodynamic_voltage batch (the first drops of phase 6)
 N_DENSE_CMP = 8  # phase 10: the dense kinodynamic batch held against phase 6
@@ -160,24 +170,12 @@ def log(*args):
 
 
 def bench_sampler(seed: int = 0):
-    """The benchmark's drop-condition sampler (numpy, seed 0): roll/yaw
-    U(+-0.25), pitch U(+-pi/3), omega U(+-0.5), v_xy U(+-1), v_z -U(0.5, 5),
-    z0 = 0.6."""
-    rng = np.random.default_rng(seed)
+    """The benchmark's drop-condition sampler, numpy ``default_rng(seed)``
+    (the port's ``bench.make_sampler``; imported here, after the script has
+    checked for a card)."""
+    from landing_controller_tpu_torch.bench import make_sampler
 
-    def sample(n):
-        q0s = np.zeros((n, 6), np.float32)
-        q0s[:, 2] = 0.6
-        q0s[:, 3] = rng.uniform(-0.25, 0.25, n)
-        q0s[:, 4] = rng.uniform(-np.pi / 3, np.pi / 3, n)
-        q0s[:, 5] = rng.uniform(-0.25, 0.25, n)
-        qd0s = np.zeros((n, 6), np.float32)
-        qd0s[:, :3] = rng.uniform(-0.5, 0.5, (n, 3))
-        qd0s[:, 3:5] = rng.uniform(-1, 1, (n, 2))
-        qd0s[:, 5] = -rng.uniform(0.5, 5.0, n)
-        return q0s, qd0s
-
-    return sample
+    return make_sampler(seed)
 
 
 HIP_SRBM = np.array([[0.19, -0.1, 0.0], [0.19, 0.1, 0.0], [-0.19, -0.1, 0.0], [-0.19, 0.1, 0.0]])
@@ -492,19 +490,6 @@ def profile_run(torch, run, label, B, card, iters=3):
     return host_ms, dev_ms
 
 
-def eeparam_drops(seed: int, n: int):
-    """The drop sampler of tools/eeparam_bench.py:68-80 (numpy): height
-    U(0.45, 0.65), vertical velocity -U(0.5, 1.5), pitch U(-0.2, 0.2).
-    Returns (r_init, rdot_init, theta_init), each (n, 3)."""
-    r = np.random.default_rng(seed)
-    h = r.uniform(0.45, 0.65, n)
-    vz = -r.uniform(0.5, 1.5, n)
-    pitch = r.uniform(-0.2, 0.2, n)
-    zero = np.zeros(n)
-    return (np.stack([zero, zero, h], 1), np.stack([zero, zero, vz], 1),
-            np.stack([zero, pitch, zero], 1))
-
-
 def run_timed(torch, fn):
     """fn() with its wall time (ending in a synchronize) and the peak device
     memory it allocated (GB)."""
@@ -541,26 +526,12 @@ def max_rel_cost_gap(cost_a, cost_b, both):
     return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
 
 
-def tool_config(max_iter):
-    """The kinodynamic family's settings of tools/train_warmstart.py:48-57
-    (also tools/kino_battery.py:62-66 `base` and tools/cascade_sweep.py:58):
-    monotone barrier rule, hybrid Hessian, refine 3, delta_c 1e-6, cri."""
-    from landing_controller_tpu_torch import IPConfig
+def kinodynamic_solver(dev):
+    """Phase 6's solver: the kinodynamic battery's `base` configuration
+    (tools/kino_battery.py of the port)."""
+    from landing_controller_tpu_torch.tools.kino_battery import battery_solver
 
-    return IPConfig(max_iter=max_iter, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
-                    sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
-                    kkt_backend="cri")
-
-
-def kinodynamic_solver(dev, **kw):
-    """Phase 6's solver (the kinodynamic battery's `base` configuration);
-    ``kw`` adds the factory's NN retry."""
-    import torch
-
-    from landing_controller_tpu_torch import LandingSolver
-
-    return LandingSolver("kinodynamic", dtype=torch.float32, guess="reference", device=dev,
-                         config=tool_config(200), **kw)
+    return battery_solver("base", dev)
 
 
 def dense_path(torch, card, kino, kino_ref, qk, qdk, dev):
@@ -620,13 +591,13 @@ def dense_path(torch, card, kino, kino_ref, qk, qdk, dev):
 
 def eeparam_phase(torch, card, dev):
     """Phase 11: EEParamSolver (f32, default settings) on the drops of the
-    eeParam benchmark's sampler."""
+    eeParam benchmark's sampler (tools/eeparam_bench.py of the port)."""
     from landing_controller_tpu_torch import EEParamSolver
+    from landing_controller_tpu_torch.tools.eeparam_bench import drop_params
 
     ee = EEParamSolver(dtype=torch.float32, device=dev)
     prob = ee.problem
-    r0, rd0, th0 = eeparam_drops(0, N_EEPARAM)
-    theta = ee.build_params(r_init=r0, rdot_init=rd0, theta_init=th0)
+    theta = drop_params(ee, 0, N_EEPARAM)
     sol, wall, peak = run_timed(torch, lambda: ee.solve_batch(theta))
     conv, line = batch_summary(sol, wall)
     log(f"[eeparam] EEParamSolver solve_batch B={N_EEPARAM} (n={prob.n_vars}, {prob.n_eq} equality "
@@ -683,16 +654,17 @@ def backends_phase(torch, card, srbm, launches, dev):
         raise AssertionError(f"backend scan: median kkt_error {kkt_scan:.3e} > 1e-2")
 
 
-def cascade_phase(torch, card, kino, kino_ref, srbm, qk, qdk, launches, dev):
+def cascade_phase(torch, card, kino_ref, srbm, qk, qdk, launches, dev):
     """Phase 13: the srbm_lcp -> kinodynamic cascade with phase 6's settings
-    (those of tools/cascade_sweep.py:58) on the first drops of phase 6, and
-    the receding-horizon replanner on the bench path's srbm_lcp settings."""
-    from landing_controller_tpu_torch import LandingSolver
+    (the solvers of the port's tools/cascade_sweep.py) on the first drops of
+    phase 6, and the receding-horizon replanner on the bench path's srbm_lcp
+    settings."""
     from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools.cascade_sweep import cascade_solvers
     from landing_controller_tpu_torch.warmstart.cascade import make_cascade
     from landing_controller_tpu_torch.warmstart.replan import Replanner
 
-    stage1 = LandingSolver("srbm_lcp", dtype=torch.float32, config=kino.config, device=dev)
+    stage1, kino = cascade_solvers(dev)
     cascade = make_cascade(stage1, kino)
     z6 = np.zeros((1, 6))
     if not torch.equal(cascade.stage1.build_params(z6, z6).dt, kino.build_params(z6, z6).dt):
@@ -746,16 +718,19 @@ NN_FACTORY_PATH = os.path.join(BUILD_OUT, "nn_factory.npz")
 
 def factory_phase(torch, card, launches, dev):
     """Phase 14: the streaming training-data factory with the settings of
-    tools/train_warmstart.py:48-67, then training on the card, the network
-    saved under build/ and read back, a solver taking it as its guess, and
-    nn_vs_nlp on one harvested drop."""
+    tools/train_warmstart.py:48-67 (the port's tool: its solvers and its
+    training), then training on the card, the network saved under build/
+    and read back, a solver taking it as its guess, and nn_vs_nlp on one
+    harvested drop."""
     from landing_controller_tpu_torch import LandingSolver
     from landing_controller_tpu_torch.analysis import nn_vs_nlp
     from landing_controller_tpu_torch.data import generate_training_data_streaming
     from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools.common import kino_config
+    from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers, train_network
     from landing_controller_tpu_torch.warmstart import nn as wsnn
 
-    kino = kinodynamic_solver(dev, retry_guess="nn")
+    kino = factory_solvers(dev)[1]
     qd_inverse.launches = 0
     data, wall, peak = run_timed(torch, lambda: generate_training_data_streaming(
         kino, N_FACTORY, generator=torch.Generator().manual_seed(0), batch=FACTORY_BATCH,
@@ -778,14 +753,10 @@ def factory_phase(torch, card, launches, dev):
         raise AssertionError(f"factory: harvested {m} of {N_FACTORY} drops (< half)")
 
     # normalization and training on the card
-    t = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
-    z6 = np.zeros((1, 6))
-    stats = wsnn.compute_stats(t["inputs"], t["X"], t["U"], t["jpos"],
-                               float(kino.build_params(z6, z6).mass[0]))
-    xin_n, targets = wsnn.normalize_sample(stats, t["inputs"], t["X"], t["U"], t["jpos"])
-    (mlp, losses), t_train, _ = run_timed(torch, lambda: wsnn.train_mlp(xin_n, targets, epochs=400))
-    log(f"[factory] train_mlp 9->256^3->976 on {m} samples, 400 epochs of batch {min(256, m)}, "
-        f"on {card}: loss {losses[0]:.5f} -> {losses[-1]:.5f}, {t_train:.2f} s")
+    (mlp, stats, losses), t_train, _ = run_timed(torch, lambda: train_network(kino, data))
+    log(f"[factory] statistics, normalization and train_mlp 9->256^3->976 on {m} samples, 400 "
+        f"epochs of batch {min(256, m)}, on {card}: loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"{t_train:.2f} s")
     if not (np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0]):
         raise AssertionError(f"training: last loss {losses[-1]} not below half the first "
                              f"{losses[0]}")
@@ -801,10 +772,10 @@ def factory_phase(torch, card, launches, dev):
              for f in dataclasses.fields(stats)]
     if not all(same):
         raise AssertionError("the saved network does not read back identical")
-    os.replace(tmp, NN_FACTORY_PATH)  # phase 15 waits for this file
-    nn_solver = LandingSolver("kinodynamic", dtype=torch.float32, config=tool_config(200),
+    os.replace(tmp, NN_FACTORY_PATH)
+    nn_solver = LandingSolver("kinodynamic", dtype=torch.float32, config=kino_config(200),
                               guess="nn", nn_path=NN_FACTORY_PATH, device=dev)
-    X0 = t["X"][:4, 0]
+    X0 = torch.as_tensor(data["X"][:4, 0], device=dev)
     z_solver = nn_solver._cold_guess(nn_solver.build_params(X0[:, :6], X0[:, 6:]))
     z_net = wsnn.nn_warmstart_guess(mlp, stats, X0[:, :6], X0[:, 6:], nn_solver.problem)
     log(f"[factory] saved {NN_FACTORY_PATH} ({os.path.getsize(NN_FACTORY_PATH)} bytes), read back "
@@ -824,30 +795,21 @@ def factory_phase(torch, card, launches, dev):
 
 def warmstart_phase(torch, card, launches, dev):
     """Phase 15: the four-regime comparison of tools/train_warmstart.py:131-140
-    on the network phase 14 trains (waits for its file): the factory's
-    kinodynamic solver and the tool's srbm_lcp solver, drops of seed 999."""
-    from landing_controller_tpu_torch import LandingSolver
-    from landing_controller_tpu_torch.analysis import warmstart_comparison
+    on the committed network (the port's data/nn_TO_landing.npz; phase 14
+    holds its freshly trained network to the solver's guess and nn_vs_nlp):
+    the factory's kinodynamic solver and the tool's srbm_lcp solver, drops
+    of seed 999 (the port's tool: its solvers and its comparison)."""
+    from landing_controller_tpu_torch.api import DEFAULT_NN_PATH
     from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers
+    from landing_controller_tpu_torch.tools.warmstart_compare import compare_regimes
     from landing_controller_tpu_torch.warmstart.nn import load_warmstart
-    from landing_controller_tpu_torch.warmstart.reference import sample_drop_scenario
 
-    t0 = time.time()
-    while not os.path.exists(NN_FACTORY_PATH):
-        if time.time() - t0 > SIDE_DEADLINE_S:
-            raise AssertionError("no network from the factory phase")
-        time.sleep(2.0)
-    log(f"[warmstart] waited {time.time() - t0:.1f} s for the factory's network")
-    mlp, stats = load_warmstart(NN_FACTORY_PATH, device=dev)
-    kino = LandingSolver("kinodynamic", dtype=torch.float32, config=tool_config(WARMSTART_MAX_ITER),
-                         retry_guess="nn", device=dev)
-    srbm = LandingSolver("srbm_lcp", dtype=torch.float32, config=tool_config(WARMSTART_MAX_ITER),
-                         device=dev)
+    mlp, stats = load_warmstart(DEFAULT_NN_PATH, device=dev)
+    srbm, kino = factory_solvers(dev, WARMSTART_MAX_ITER)
     T, B = WARMSTART_TRIALS, N_WARMSTART
-    q, qd = sample_drop_scenario(T * B, torch.Generator().manual_seed(999), device="cpu")
     qd_inverse.launches = 0
-    res, wall, _ = run_timed(torch, lambda: warmstart_comparison(
-        kino, srbm, mlp, stats, q.reshape(T, B, 6), qd.reshape(T, B, 6), n_trials=T))
+    res, wall, _ = run_timed(torch, lambda: compare_regimes(kino, srbm, mlp, stats, T, B, 999))
     launches["warmstart"] = qd_inverse.launches
     log(f"[warmstart] B={B}, {T} trial(s) after one untimed pass, max_iter {WARMSTART_MAX_ITER}, "
         f"on {card}: wall_s {wall:.2f}, qd_inverse launches {launches['warmstart']}")
@@ -1373,14 +1335,210 @@ def deploy_phase(torch, card, launches, dev, kino_ref, qk, qdk, stream_ref):
         raise AssertionError("the viewers failed on a converged trajectory")
 
 
+def qd_pair(np_, nd):
+    """kernel, plain version and f64 pivot measure at one block split."""
+    import torch
+
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse, qd_inverse_ref
+
+    return ((lambda S: qd_inverse(S, np_, nd)), (lambda S: qd_inverse_ref(S, np_, nd)),
+            (lambda S64: qd_rel_least_pivot(torch, S64, np_, nd)))
+
+
+def variants_phase(torch, card, launches, dev):
+    """Phase 5's gentle drop on the card and on the CPU, and phase 7: the
+    srbm variants on the card, one scenario each (beside phases 10-20)."""
+    from landing_controller_tpu_torch import IPConfig, LandingSolver
+    from landing_controller_tpu_torch.ops.pallas_blocks import chol_inverse, qd_inverse
+    from landing_controller_tpu_torch.solver import structured
+
+    # one gentle drop on the card (kernel) and on the CPU (plain versions)
+    small = dict(kind="srbm_lcp", n_knots=21, dtype=torch.float32, guess="ballistic",
+                 config=IPConfig(max_iter=150, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
+                                 sigma_max=1e5, refine_steps=2, relax_scale=1.0, delta_c=1e-6,
+                                 kkt_backend="cri"))
+    q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
+    s_gpu = LandingSolver(**small, device=dev).solve(q0, qd0)
+    s_cpu = LandingSolver(**small, device="cpu").solve(q0, qd0)
+    c_gpu, c_cpu = float(s_gpu.cost), float(s_cpu.cost)
+    log(f"[check] gentle drop: card converged {bool(s_gpu.converged)} in {int(s_gpu.iterations)} "
+        f"iterations, cost {c_gpu:.6e}; CPU converged {bool(s_cpu.converged)} in "
+        f"{int(s_cpu.iterations)}, cost {c_cpu:.6e}")
+    if not (bool(s_gpu.converged) and bool(s_cpu.converged)
+            and abs(c_gpu - c_cpu) <= 1e-2 * abs(c_cpu) + 1e-12):
+        raise AssertionError("the card's solve disagrees with the CPU's")
+
+    # the srbm variants on the card, one scenario each
+    def run_variant(name, vsolver, q0, qd0):
+        cap = {}
+        restore, vsizes = capture_block_inverse_calls(structured, cap, CAPTURE_EVERY)
+        qd_inverse.launches = chol_inverse.launches = 0
+        try:
+            t0 = time.time()
+            vsol = vsolver.solve(q0, qd0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            restore()
+        launches[name] = qd_inverse.launches
+        n_levels = cr_launches_per_factor(vsolver.problem.config.n_knots)
+        log(f"[{name}] N={vsolver.problem.config.n_knots} on {card}: converged "
+            f"{bool(vsol.converged)} in {int(vsol.iterations)} iterations, kkt_error "
+            f"{float(vsol.kkt_error):.3e}, constr_viol {float(vsol.constr_viol):.3e}, cost "
+            f"{float(vsol.cost):.6e}, wall_s {wall:.2f}, qd_inverse launches {launches[name]} "
+            f"({n_levels} per factorization), launch sizes {vsizes[:n_levels]}")
+        if launches[name] <= 0 or launches[name] != len(vsizes):
+            raise AssertionError(f"{name}: the solve did not go through the qd_inverse kernel")
+        if not (torch.isfinite(vsol.z).all() and torch.isfinite(vsol.cost)):
+            raise AssertionError(f"{name}: non-finite solution")
+        return vsol, cap
+
+    def unscaled_violation(vsolver, vsol, q0, qd0):
+        theta = vsolver.build_params(np.asarray([q0], np.float32), np.asarray([qd0], np.float32))
+        E = vsolver.problem.eq(vsol.z[None], theta)
+        g = vsolver.problem.ineq(vsol.z[None], theta)
+        return max(float(E.abs().max()), float(torch.clamp(-g, min=0).max()))
+
+    # sliding: a fast tangential drop on low-friction ground, tol 5e-3 (the
+    # family's f32 KKT floor), loqo + corrector
+    q0, qd0 = [0.0, 0.0, 0.55, 0.0, 0.1, 0.0], [0.0, 0.0, 0.0, 2.0, 0.0, -2.2]
+    sliding = LandingSolver(
+        "sliding", n_knots=15, dtype=torch.float32, guess="ballistic", device=dev,
+        theta_overrides={"mu": np.float32(0.3)},
+        config=IPConfig(max_iter=400, hessian_mode="hybrid", mu_init=0.3, kappa_mu=0.5,
+                        mu_min=1e-5, tol=5e-3, sigma_max=1e5, refine_steps=1, relax_scale=1.0,
+                        delta_c=1e-6, kkt_backend="cri", mu_strategy="loqo", stall_window=60,
+                        stall_min_iter=80, corrector=1))
+    vsol, _ = run_variant("sliding", sliding, q0, qd0)
+    viol = unscaled_violation(sliding, vsol, q0, qd0)
+    log(f"[sliding] unscaled violation {viol:.3e} (< 1e-3)")
+    if not (bool(vsol.converged) and float(vsol.constr_viol) < 1e-3 and viol < 1e-3):
+        raise AssertionError("sliding: the solve did not converge to a feasible point")
+
+    # contact_scheduled: its own horizon of 16 knots, default settings
+    q0, qd0 = [0.0, 0.0, 0.26, 0.03, 0.1, -0.02], [0.1, -0.05, 0.0, 0.05, -0.05, -0.8]
+    sched = LandingSolver("contact_scheduled", n_knots=16, dtype=torch.float32, device=dev)
+    vsol, cap_sched = run_variant("contact_scheduled", sched, q0, qd0)
+    fz_flight = float(vsol.U[:2, 14::3].abs().max())
+    log(f"[contact_scheduled] largest flight-leg force {fz_flight:.3e} N (< 2e-3)")
+    if not (bool(vsol.converged) and int(vsol.iterations) < 60
+            and float(vsol.constr_viol) < 1e-3 and fz_flight < 2e-3):
+        raise AssertionError("contact_scheduled: not converged within 60 iterations")
+    k40, p40, piv40 = qd_pair(36, 40)
+    check_real_blocks(torch, "qd_inverse (36,40) contact_scheduled", k40, p40, cap_sched, piv40)
+
+    # ccc: 41 blocks, f32, the solver's default settings with 150 iterations
+    # on the gentle drop; held to finiteness and launches, the outcome is logged
+    q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
+    ccc_cfg = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device=dev).config
+    ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device=dev,
+                        config=dataclasses.replace(ccc_cfg, max_iter=150))
+    run_variant("ccc", ccc, q0, qd0)
+
+
+N_MC_RECORD, MC_RECORD_CHUNK = 256, 128  # phase 21: the Monte-Carlo record's drops, its pool
+# the keys of bench.py's row without vs_baseline (bench.py:297-314, 417-421)
+BENCH_KEYS = {"metric", "value", "unit", "mode", "n_scenarios", "wall_s", "convergence_rate",
+              "iters_p50", "iters_p90", "batch", "segment", "guess", "retry_guess", "tol",
+              "mu_strategy", "retry_failed", "compile_s"}
+BENCH_TIMEOUT_S = 480
+
+
+def bench_phase(card, launches):
+    """Phase 21: the port's bench with its defaults in a process of its own;
+    its last line (the row) and its "# measured run" line are read back."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "landing_controller_tpu_torch.bench"], cwd=repo,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.time() - t0
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    with open(os.path.join(BUILD_OUT, "bench.log"), "w") as f:
+        f.write(out.stdout + out.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"the bench exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    row = json.loads(lines[-1])
+    tag = "# measured run: "
+    run = json.loads(next(line for line in lines if line.startswith(tag))[len(tag):])
+    snapshots = sum(line.startswith("{") for line in lines[:-1])
+    for line in lines:
+        if line.startswith("#"):
+            log(f"[bench] {line}")
+    log(f"[bench] python -m landing_controller_tpu_torch.bench, on {card}: {wall:.1f} s in all, "
+        f"{snapshots} snapshot rows; last line {json.dumps(row)}")
+    per_iter = run["qd_inverse_launches"] / max(run["batch_iterations"], 1)
+    log(f"[bench] qd_inverse launches {run['qd_inverse_launches']} in {run['batch_iterations']} "
+        f"batch iterations ({per_iter:.2f} per iteration), peak device memory "
+        f"{run['peak_device_memory_gb']:.3f} GB, pool set-up {run['pool_setup_s']} s")
+    if set(row) != BENCH_KEYS:
+        raise AssertionError(f"the bench's row has keys {sorted(row)}")
+    if (row["n_scenarios"], row["batch"], row["segment"]) != (384, 64, 25) or not snapshots:
+        raise AssertionError("the bench did not run its pool of 384 at B=64, segment 25")
+    if row["convergence_rate"] < CONVERGENCE_FLOOR:
+        raise AssertionError(f"the bench's convergence_rate {row['convergence_rate']} < "
+                             f"{CONVERGENCE_FLOOR}")
+    if run["qd_inverse_launches"] <= 0 or run["qd_inverse_launches"] != 6 * run["batch_iterations"]:
+        raise AssertionError("the bench did not launch qd_inverse 6 times per batch iteration")
+    launches["bench"] = run["qd_inverse_launches"]
+
+
+def montecarlo_record_phase(torch, card, launches):
+    """Phase 21, beside phases 10-20: the port's tools.montecarlo_100k over
+    two pools, its record read back."""
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools import montecarlo_100k
+
+    path = os.path.join(BUILD_OUT, "montecarlo_100k.json")
+    qd_inverse.launches = 0
+    _, wall, _ = run_timed(torch, lambda: montecarlo_100k.main(
+        ["--n", str(N_MC_RECORD), "--chunk", str(MC_RECORD_CHUNK), "--out", path]))
+    launches["montecarlo_100k"] = qd_inverse.launches
+    with open(path) as f:
+        rec = json.load(f)
+    region = rec["success_region"]
+    counted = sum(map(sum, region["count"]))
+    log(f"[montecarlo_100k] --n {N_MC_RECORD} --chunk {MC_RECORD_CHUNK}, on {card}: finished "
+        f"{rec['n_finished']}, convergence_rate {rec['convergence_rate']}, "
+        f"converged_per_sec_per_chip {rec['converged_per_sec_per_chip']}, iters p50 "
+        f"{rec['iters_p50']} p90 {rec['iters_p90']}, pool set-up {rec['pool_setup_s']} s, peak "
+        f"device memory {rec['peak_device_memory_gb']:.3f} GB, tool wall {wall:.1f} s, "
+        f"qd_inverse launches {launches['montecarlo_100k']}; map cells count {counted}")
+    if rec["n_finished"] != N_MC_RECORD or counted != N_MC_RECORD:
+        raise AssertionError("the Monte-Carlo record does not hold every drop once")
+    if rec["convergence_rate"] < CONVERGENCE_FLOOR or launches["montecarlo_100k"] <= 0:
+        raise AssertionError("the Monte-Carlo record failed its checks")
+
+
+def example_phase(torch, card, launches):
+    """Phase 21, beside phases 10-20: examples.solve_landing --cascade with
+    the HTML viewer under build/."""
+    from landing_controller_tpu_torch.examples import solve_landing
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+
+    path = os.path.join(BUILD_OUT, "solve_landing.html")
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    qd_inverse.launches = 0
+    _, wall, _ = run_timed(torch, lambda: solve_landing.main(["--cascade", "--plot", path]))
+    launches["solve_landing"] = qd_inverse.launches
+    with open(path) as f:
+        page = f.read()
+    log(f"[example] solve_landing --cascade --plot, on {card}: {wall:.1f} s, qd_inverse launches "
+        f"{launches['solve_landing']}, viewer {len(page)} bytes")
+    if "__DATA__" in page or launches["solve_landing"] <= 0:
+        raise AssertionError("the example failed its checks")
+
+
 SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo",
-               "f64", "dynamics", "vbl", "deploy")
+               "f64", "dynamics", "vbl", "deploy", "montecarlo_100k", "example", "variants")
 
 
 def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
-    """One of phases 10-20 in a process of its own; returns its kernel
-    launch counts {path: launches} and its readings {name: value} for the
-    checks across phases."""
+    """One of phases 10-20 or phase 21's side runs in a process of its own;
+    returns its kernel launch counts {path: launches} and its readings
+    {name: value} for the checks across phases."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1394,8 +1552,7 @@ def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
     elif name == "backends":
         backends_phase(torch, card, srbm_lcp_path()[0], launches, "cuda")
     elif name == "cascade":
-        cascade_phase(torch, card, kinodynamic_solver("cuda"), kino_ref, srbm_lcp_path()[0], qk,
-                      qdk, launches, "cuda")
+        cascade_phase(torch, card, kino_ref, srbm_lcp_path()[0], qk, qdk, launches, "cuda")
     elif name in ("factory", "warmstart"):
         {"factory": factory_phase, "warmstart": warmstart_phase}[name](torch, card, launches,
                                                                      "cuda")
@@ -1405,6 +1562,12 @@ def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
         vbl_phase(torch, card, "cuda", *vbl_traj)
     elif name == "deploy":
         deploy_phase(torch, card, launches, "cuda", kino_ref, qk, qdk, stream_ref)
+    elif name == "montecarlo_100k":
+        montecarlo_record_phase(torch, card, launches)
+    elif name == "example":
+        example_phase(torch, card, launches)
+    elif name == "variants":
+        variants_phase(torch, card, launches, "cuda")
     else:
         {"montecarlo": montecarlo_phase, "f64": f64_phase}[name](torch, card, launches, "cuda",
                                                                  readings)
@@ -1423,27 +1586,14 @@ def free_port() -> int:
 def srbm_lcp_path():
     """The srbm_lcp solver of the repo's benchmark settings on the card, and
     a function seed -> its streaming solver (B=64, 25-iteration segments,
-    deadlines (100, 150))."""
-    import torch
+    deadlines (100, 150)): the port's bench (``bench_solver``,
+    ``bench_stream``)."""
+    from landing_controller_tpu_torch.bench import bench_solver, bench_stream
 
-    from landing_controller_tpu_torch import IPConfig, LandingSolver, StreamingSolver
-    from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
-
-    cfg = IPConfig(
-        max_iter=200, hessian_mode="hybrid", mu_init=0.3, kappa_mu=0.5, mu_min=1e-5, tol=1e-4,
-        sigma_max=1e5, refine_steps=1, relax_scale=1.0, delta_c=1e-6, kkt_backend="cri",
-        ladder_scales=(0.0, 1.0), n_linesearch=4, mu_strategy="loqo", stall_window=40,
-        stall_min_iter=40, corrector=1,
-    )
-    solver = LandingSolver(
-        "srbm_lcp", dtype=torch.float32, config=cfg, guess="ballistic",
-        theta_overrides={"dt": DT_PRODUCTION.astype(np.float32)}, retry_guess="nn",
-        device="cuda",
-    )
+    solver = bench_solver("cuda")
 
     def make_stream(seed):
-        return StreamingSolver(solver, batch=64, segment=25, sampler=bench_sampler(seed),
-                               attempt_iters=(100, 150), collect_z=True)
+        return bench_stream(solver, bench_sampler(seed), collect_z=True)
 
     return solver, make_stream
 
@@ -1464,11 +1614,11 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    from landing_controller_tpu_torch import IPConfig, LandingSolver
+    from landing_controller_tpu_torch import LandingSolver
     from landing_controller_tpu_torch import ops
     from landing_controller_tpu_torch.ops import _build, pallas_blocks
     from landing_controller_tpu_torch.ops.pallas_blocks import (chol_inverse, chol_inverse_ref,
-                                                               qd_inverse, qd_inverse_ref)
+                                                               qd_inverse)
     from landing_controller_tpu_torch.solver import structured
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1476,11 +1626,6 @@ def main() -> int:
     log(f"[device] tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
-
-    def qd_pair(np_, nd):
-        """kernel, plain version and f64 pivot measure at one block split."""
-        return ((lambda S: qd_inverse(S, np_, nd)), (lambda S: qd_inverse_ref(S, np_, nd)),
-                (lambda S64: qd_rel_least_pivot(torch, S64, np_, nd)))
 
     # ---- 2. build
     t0 = time.time()
@@ -1673,8 +1818,9 @@ def main() -> int:
         raise AssertionError("the srbm_lcp path launched no qd_inverse kernel")
     if sizes_srbm[:6] != cr_launch_sizes(21, 64, 2):
         raise AssertionError(f"unexpected srbm_lcp launch sizes {sizes_srbm[:6]}")
-    if stats["convergence_rate"] < 0.6:
-        raise AssertionError(f"convergence_rate {stats['convergence_rate']:.3f} < 0.6")
+    if stats["convergence_rate"] < CONVERGENCE_FLOOR:
+        raise AssertionError(f"convergence_rate {stats['convergence_rate']:.3f} < "
+                             f"{CONVERGENCE_FLOOR}")
 
     # ---- 5. checks of the srbm_lcp output
     # (a) kernel vs plain on the real KKT blocks of the path
@@ -1687,22 +1833,6 @@ def main() -> int:
                    qd_np[conv], stats["viol"][conv], "srbm_lcp")
     lanes = solver.problem.unpack(torch.as_tensor(stats["z"][conv]))
     vbl_traj = (lanes.X.numpy(), lanes.U.numpy())  # phase 19's trajectories
-    # (c) one gentle drop on the card (kernel) and on the CPU (plain versions)
-    small = dict(kind="srbm_lcp", n_knots=21, dtype=torch.float32, guess="ballistic",
-                 config=IPConfig(max_iter=150, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
-                                 sigma_max=1e5, refine_steps=2, relax_scale=1.0, delta_c=1e-6,
-                                 kkt_backend="cri"))
-    q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
-    s_gpu = LandingSolver(**small, device="cuda").solve(q0, qd0)
-    s_cpu = LandingSolver(**small, device="cpu").solve(q0, qd0)
-    c_gpu, c_cpu = float(s_gpu.cost), float(s_cpu.cost)
-    log(f"[check] gentle drop: card converged {bool(s_gpu.converged)} in {int(s_gpu.iterations)} "
-        f"iterations, cost {c_gpu:.6e}; CPU converged {bool(s_cpu.converged)} in "
-        f"{int(s_cpu.iterations)}, cost {c_cpu:.6e}")
-    if not (bool(s_gpu.converged) and bool(s_cpu.converged)
-            and abs(c_gpu - c_cpu) <= 1e-2 * abs(c_cpu) + 1e-12):
-        raise AssertionError("the card's solve disagrees with the CPU's")
-
     # ---- 6. the kinodynamic path at full width: N=21, 84-wide blocks
     kino = kinodynamic_solver("cuda")
     qk, qdk = sample_drop_scenarios(11, N_KINO)
@@ -1746,73 +1876,6 @@ def main() -> int:
                    sol.constr_viol[sol.converged], "kinodynamic")
     k48, p48, piv48 = qd_pair(48, 36)
     check_real_blocks(torch, "qd_inverse (48,36) kinodynamic", k48, p48, cap_kino, piv48)
-
-    # ---- 7. the srbm variants on the card, one scenario each
-    def run_variant(name, vsolver, q0, qd0):
-        cap = {}
-        restore, vsizes = capture_block_inverse_calls(structured, cap, CAPTURE_EVERY)
-        qd_inverse.launches = chol_inverse.launches = 0
-        try:
-            t0 = time.time()
-            vsol = vsolver.solve(q0, qd0)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        finally:
-            restore()
-        launches[name] = qd_inverse.launches
-        n_levels = cr_launches_per_factor(vsolver.problem.config.n_knots)
-        log(f"[{name}] N={vsolver.problem.config.n_knots} on {card}: converged "
-            f"{bool(vsol.converged)} in {int(vsol.iterations)} iterations, kkt_error "
-            f"{float(vsol.kkt_error):.3e}, constr_viol {float(vsol.constr_viol):.3e}, cost "
-            f"{float(vsol.cost):.6e}, wall_s {wall:.2f}, qd_inverse launches {launches[name]} "
-            f"({n_levels} per factorization), launch sizes {vsizes[:n_levels]}")
-        if launches[name] <= 0 or launches[name] != len(vsizes):
-            raise AssertionError(f"{name}: the solve did not go through the qd_inverse kernel")
-        if not (torch.isfinite(vsol.z).all() and torch.isfinite(vsol.cost)):
-            raise AssertionError(f"{name}: non-finite solution")
-        return vsol, cap
-
-    def unscaled_violation(vsolver, vsol, q0, qd0):
-        theta = vsolver.build_params(np.asarray([q0], np.float32), np.asarray([qd0], np.float32))
-        E = vsolver.problem.eq(vsol.z[None], theta)
-        g = vsolver.problem.ineq(vsol.z[None], theta)
-        return max(float(E.abs().max()), float(torch.clamp(-g, min=0).max()))
-
-    # sliding: a fast tangential drop on low-friction ground, tol 5e-3 (the
-    # family's f32 KKT floor), loqo + corrector
-    q0, qd0 = [0.0, 0.0, 0.55, 0.0, 0.1, 0.0], [0.0, 0.0, 0.0, 2.0, 0.0, -2.2]
-    sliding = LandingSolver(
-        "sliding", n_knots=15, dtype=torch.float32, guess="ballistic", device="cuda",
-        theta_overrides={"mu": np.float32(0.3)},
-        config=IPConfig(max_iter=400, hessian_mode="hybrid", mu_init=0.3, kappa_mu=0.5,
-                        mu_min=1e-5, tol=5e-3, sigma_max=1e5, refine_steps=1, relax_scale=1.0,
-                        delta_c=1e-6, kkt_backend="cri", mu_strategy="loqo", stall_window=60,
-                        stall_min_iter=80, corrector=1))
-    vsol, _ = run_variant("sliding", sliding, q0, qd0)
-    viol = unscaled_violation(sliding, vsol, q0, qd0)
-    log(f"[sliding] unscaled violation {viol:.3e} (< 1e-3)")
-    if not (bool(vsol.converged) and float(vsol.constr_viol) < 1e-3 and viol < 1e-3):
-        raise AssertionError("sliding: the solve did not converge to a feasible point")
-
-    # contact_scheduled: its own horizon of 16 knots, default settings
-    q0, qd0 = [0.0, 0.0, 0.26, 0.03, 0.1, -0.02], [0.1, -0.05, 0.0, 0.05, -0.05, -0.8]
-    sched = LandingSolver("contact_scheduled", n_knots=16, dtype=torch.float32, device="cuda")
-    vsol, cap_sched = run_variant("contact_scheduled", sched, q0, qd0)
-    fz_flight = float(vsol.U[:2, 14::3].abs().max())
-    log(f"[contact_scheduled] largest flight-leg force {fz_flight:.3e} N (< 2e-3)")
-    if not (bool(vsol.converged) and int(vsol.iterations) < 60
-            and float(vsol.constr_viol) < 1e-3 and fz_flight < 2e-3):
-        raise AssertionError("contact_scheduled: not converged within 60 iterations")
-    k40, p40, piv40 = qd_pair(36, 40)
-    check_real_blocks(torch, "qd_inverse (36,40) contact_scheduled", k40, p40, cap_sched, piv40)
-
-    # ccc: 41 blocks, f32, the solver's default settings with 150 iterations
-    # on the gentle drop; held to finiteness and launches, the outcome is logged
-    q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
-    ccc_cfg = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device="cuda").config
-    ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device="cuda",
-                        config=dataclasses.replace(ccc_cfg, max_iter=150))
-    run_variant("ccc", ccc, q0, qd0)
 
     # ---- 8. the ops.chol_inverse entry point on the SPD sub-blocks P of the
     # captured KKT blocks of both families (P = S[:np, :np]; taken from the
@@ -1863,20 +1926,24 @@ def main() -> int:
     volt = LandingSolver("kinodynamic_voltage", dtype=torch.float32, device="cuda")
     profile_iteration(torch, volt, *sample_drop_scenarios(12, 32), "kinodynamic_voltage (dense)",
                       card)
+    log(f"[phases 1-9] {time.time() - t_start:.1f} s")
+
+    # ---- 21. the entry points: the port's bench at its full pool, alone on
+    # the card (its two side runs go with phases 10-20)
+    bench_phase(card, launches)
 
     # ---- 10-20. the dense path, EEParamSolver, the backends, cascade and
     # replan, the factory and training, the warm-start comparison, the
     # Monte-Carlo sweep, f64, the dynamics layer, VBL and the deployment
-    # surface: eleven processes side by side on the card.  Each
+    # surface, and phase 21's Monte-Carlo record and example: thirteen
+    # processes side by side on the card.  Each
     # path is host-bound (the device idles 75-95% of an iteration, phase 9),
     # so together they take about as long as the longest chain (factory ->
     # warm start); their wall times include the others' share of the card
     # and the host's cores
-    log(f"[phases 1-9] {time.time() - t_start:.1f} s")
+    log(f"[phase 21 bench] {time.time() - t_start:.1f} s")
     kino_ref = {"converged": sol.converged.cpu().numpy(), "z": sol.z.cpu().numpy(),
                 "cost": sol.cost.cpu().numpy()}
-    if os.path.exists(NN_FACTORY_PATH):
-        os.remove(NN_FACTORY_PATH)  # phase 15 waits for this run's network
     pool = multiprocessing.get_context("spawn").Pool(len(SIDE_PHASES))
     readings = {}
     try:
@@ -1908,7 +1975,8 @@ def main() -> int:
     # ---- the kernels line, the card line, the result line
     solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
                     "srbm_lcp_cri_backend", "cascade", "replan", "factory", "warmstart",
-                    "montecarlo", "foot_sweep", "srbm_lcp_f32", "artifact", "stream_aot")
+                    "montecarlo", "foot_sweep", "srbm_lcp_f32", "artifact", "stream_aot", "bench",
+                    "montecarlo_100k", "solve_landing")
     f64_paths = ("srbm_lcp_f64", "foot_sweep_f64")
     kernels = [{
         "name": "qd_inverse",

@@ -10,7 +10,9 @@ and the receding-horizon replanner (``warmstart.cascade``,
 training (``data``, ``warmstart.nn``), the analyses (``analysis``), and
 Monte-Carlo envelope sweeps over one process per card (``parallel``,
 ``runtime``); saved solvers and stream steps (``runtime.artifact``) and the
-plots, animation and HTML viewer (``viz``).  The block inverses of the
+plots, animation and HTML viewer (``viz``); the programs that run it, as
+``python -m landing_controller_tpu_torch.<bench | tools.* | examples.*>``.
+The block inverses of the
 "cri" factorization are hand-written CUDA kernels for Hopper
 (``csrc/qd_inverse.cu``, ``csrc/chol_inverse.cu``), registered as custom
 ops.  Imports no JAX; the JAX package beside it is the

@@ -3,6 +3,8 @@ asks for the CPU), and host constants kept on the device."""
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -13,6 +15,20 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (every entry point's
+    record carries it: a card set below 700 W runs slower), or "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def cached_tensors(cache: dict, arrays: tuple, dtype, device, build=tuple):

@@ -47,6 +47,7 @@ class RobotParams:
     knee_location: np.ndarray  # (3,) hip->knee offset
     foot_location: np.ndarray  # (3,) knee->foot offset
     hip_srbm_location: np.ndarray  # (4,3) SRBM hip positions
+    leg_rad: float
     abad_gear_ratio: float
     hip_gear_ratio: float
     knee_gear_ratio: float
@@ -96,6 +97,7 @@ def _mc3d() -> RobotParams:
         hip_srbm_location=np.array(
             [[0.19, -0.1, 0.0], [0.19, 0.1, 0.0], [-0.19, -0.1, 0.0], [-0.19, 0.1, 0.0]]
         ),
+        leg_rad=0.02,
         abad_gear_ratio=6.0,
         hip_gear_ratio=6.0,
         knee_gear_ratio=9.33,

@@ -17,7 +17,9 @@ examples/envelope_sweep.py)::
 
 Under ``torchrun`` each process takes the card ``LOCAL_RANK`` and joins the
 default process group (NCCL; gloo with ``--device cpu``) from the variables
-torchrun sets; each rank writes its own log, ``<log>.rank<r>``.
+torchrun sets; each rank writes its own log, ``<log>.rank<r>``.  ``--map
+PATH`` draws the success rate of the rank's drops over (pitch, v_z)
+(``viz.plot_envelope``, matplotlib), ``<stem>.rank<r><ext>`` per rank.
 """
 
 from __future__ import annotations
@@ -142,9 +144,30 @@ def monte_carlo_envelope(
     }
 
 
+# the success map's bin edges (the JAX package's examples/envelope_sweep.py)
+MAP_PITCH_EDGES = np.linspace(-1.1, 1.1, 13)
+MAP_VZ_EDGES = np.linspace(-5.2, -0.4, 13)
+
+
+def success_map(ics, converged):
+    """Success rate and count of the drops ``ics`` (n, 12) per (v_z, pitch)
+    bin (rows v_z); drops outside the edges count in the outer bins.
+    Returns (pitch bin centres, v_z bin centres, rate, count)."""
+    pb, vb = MAP_PITCH_EDGES, MAP_VZ_EDGES
+    pi = np.clip(np.digitize(ics[:, 4], pb) - 1, 0, len(pb) - 2)
+    vi = np.clip(np.digitize(ics[:, 11], vb) - 1, 0, len(vb) - 2)
+    hits = np.zeros((len(vb) - 1, len(pb) - 1))
+    count = np.zeros_like(hits)
+    np.add.at(hits, (vi, pi), np.asarray(converged, float))
+    np.add.at(count, (vi, pi), 1.0)
+    rate = np.where(count > 0, hits / np.maximum(count, 1), np.nan)
+    return 0.5 * (pb[:-1] + pb[1:]), 0.5 * (vb[:-1] + vb[1:]), rate, count
+
+
 def main(argv=None) -> int:
     import torch.distributed as dist
 
+    from .._device import resolve_device
     from ..api import LandingSolver
     from ..runtime import ResultLog
     from .batch import backend_for
@@ -158,12 +181,13 @@ def main(argv=None) -> int:
     ap.add_argument("--max-iter", type=int, default=None, help="the solver's default when unset")
     ap.add_argument("--device", default=None, help="default cuda:LOCAL_RANK; 'cpu' for the CPU")
     ap.add_argument("--result-log", default=None, help="result log path (one file per rank)")
+    ap.add_argument("--map", default=None, help="success-map PNG path")
     args = ap.parse_args(argv)
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    device = args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-    if torch.device(device).type == "cuda":
-        torch.cuda.set_device(torch.device(device))
+    device = resolve_device(args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if world > 1:
         dist.init_process_group(backend_for(device))  # env:// from torchrun
     log = None
@@ -186,6 +210,14 @@ def main(argv=None) -> int:
             if stats[k] is not None:
                 env = np.round(stats[k].astype(np.float64), 3).tolist()
                 print(f"terminal-state envelope {k[5:]}: {env}")
+        if args.map:
+            from ..viz import plot_envelope
+
+            stem, ext = os.path.splitext(args.map)
+            path = args.map if world == 1 else f"{stem}.rank{mesh.rank}{ext}"
+            p_mid, v_mid, rate, _ = success_map(stats["ics"], stats["converged"])
+            plot_envelope(p_mid, v_mid, rate, "pitch (rad)", "v_z (m/s)", save_path=path)
+            print(f"wrote {path}", flush=True)
     finally:
         if log is not None:
             log.close()

@@ -334,12 +334,17 @@ class StreamingSolver:
         )
 
     # ------------------------------------------------------------------
-    def run(self, n_scenarios: int, max_wall_s: float | None = None):
+    def run(self, n_scenarios: int, max_wall_s: float | None = None,
+            progress_cb: Callable | None = None):
         """Solve n_scenarios scenarios; returns a stats dict.
 
         The pool is sampled and its lane data precomputed up front (set-up,
         outside ``wall_s``); lanes are refilled until the pool drains, then
-        the remaining lanes drain."""
+        the remaining lanes drain.  ``progress_cb(stats)``, if given, is
+        called after every segment, the last one included, with the
+        cumulative stats so far (the JAX package reads them one segment
+        behind the device; here the one host read per segment serves both,
+        and the sequence of calls is the same)."""
         B = self.batch
         P = int(n_scenarios)
         q_np, qd_np = self.sampler(P)
@@ -359,6 +364,8 @@ class StreamingSolver:
         while True:
             carry = step(pool, carry)
             res_np = carry.res.cpu().numpy()  # the one host read per segment
+            if progress_cb is not None:
+                progress_cb(self._stats(res_np, ics, P, B, t0))
             if res_np[0, :P].sum() >= P:
                 break
             if max_wall_s is not None and time.time() - t0 > max_wall_s:

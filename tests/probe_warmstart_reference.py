@@ -6,7 +6,8 @@ Not a test (needs an NVIDIA GPU and nvcc; about ten minutes at the
 defaults).  Runs ``analysis.warmstart_comparison`` with the committed
 network (``api.DEFAULT_NN_PATH``) on drops of ``sample_drop_scenario``
 (seed 999), with the kinodynamic solver of tools/train_warmstart.py:48-57
-(NN retry) and its srbm_lcp solver: the settings of the JAX package's
+(NN retry) and its srbm_lcp solver (the port's tool's ``factory_solvers``
+and ``compare_regimes``): the settings of the JAX package's
 record ``landing_controller_tpu/data/warmstart_bench.json`` (B=64, 200
 iterations), with fewer trials.  One untimed pass precedes the trials.
 Prints the four timing rows and the three convergence rows with the card's
@@ -24,13 +25,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
-from landing_controller_tpu_torch import LandingSolver  # noqa: E402
-from landing_controller_tpu_torch.analysis import warmstart_comparison  # noqa: E402
 from landing_controller_tpu_torch.api import DEFAULT_NN_PATH  # noqa: E402
 from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse  # noqa: E402
+from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers  # noqa: E402
+from landing_controller_tpu_torch.tools.warmstart_compare import compare_regimes  # noqa: E402
 from landing_controller_tpu_torch.warmstart.nn import load_warmstart  # noqa: E402
-from landing_controller_tpu_torch.warmstart.reference import sample_drop_scenario  # noqa: E402
 
 JAX_RECORD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "landing_controller_tpu", "data", "warmstart_bench.json")
@@ -50,16 +49,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     T, B = args.trials, args.batch
     mlp, stats = load_warmstart(DEFAULT_NN_PATH, device="cuda")
-    kino = LandingSolver("kinodynamic", dtype=torch.float32,
-                         config=chip_smoke.tool_config(args.max_iter), retry_guess="nn",
-                         device="cuda")
-    srbm = LandingSolver("srbm_lcp", dtype=torch.float32,
-                         config=chip_smoke.tool_config(args.max_iter), device="cuda")
-    q, qd = sample_drop_scenario(T * B, torch.Generator().manual_seed(999))
+    srbm, kino = factory_solvers("cuda", args.max_iter)
     qd_inverse.launches = 0
     t0 = time.time()
-    res = warmstart_comparison(kino, srbm, mlp, stats, q.reshape(T, B, 6), qd.reshape(T, B, 6),
-                               n_trials=T)
+    res = compare_regimes(kino, srbm, mlp, stats, T, B, 999)
     wall = time.time() - t0
     print(f"[warmstart] committed network {os.path.basename(DEFAULT_NN_PATH)}, B={B}, {T} trial(s) "
           f"after one untimed pass, max_iter {args.max_iter}, drops of seed 999, on {smi}: wall_s "

@@ -1,8 +1,9 @@
 """The port imports no JAX and nothing of the JAX package.
 
 A fresh interpreter with ``jax`` and ``landing_controller_tpu`` blocked in
-``sys.modules`` imports every module of landing_controller_tpu_torch and
-the repo-root ``chip_smoke.py``; the sources are also searched for such
+``sys.modules`` imports every module of landing_controller_tpu_torch (its
+entry points ``bench``, ``tools/*`` and ``examples/*`` too) and the
+repo-root ``chip_smoke.py``; the sources are also searched for such
 imports, and the package's sources for a string that names a path under
 the JAX package's directory (the port reads its own data files).
 """
@@ -28,8 +29,10 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert len(modules) >= 49
-    for name in ("dynamics.legs", "ops.block_tridiag", "ops.cyclic_reduction", "problems.eeparam",
+    assert len(modules) >= 60
+    for name in ("bench", "tools.common", "tools.montecarlo_100k", "tools.train_warmstart",
+                 "tools.warmstart_compare", "tools.eeparam_bench", "tools.kino_battery",
+                 "tools.cascade_sweep", "examples.solve_landing", "dynamics.legs", "ops.block_tridiag", "ops.cyclic_reduction", "problems.eeparam",
                  "warmstart.cascade", "warmstart.replan", "data.factory", "parallel.batch",
                  "parallel.multihost", "parallel.montecarlo", "runtime.native",
                  "analysis.warmstart_bench", "analysis.nn_validation",

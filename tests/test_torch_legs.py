@@ -33,7 +33,7 @@ def _inputs(seed, b=4):
 @pytest.mark.parametrize("robot", ["mc3D", "mcv3D"])
 def test_link_lengths_match(robot):
     pt, pj = get_robot_params(robot), j_get_robot_params(robot)
-    for name in ("l1", "l2", "l3", "knee_link_y_offset"):
+    for name in ("l1", "l2", "l3", "knee_link_y_offset", "leg_rad"):
         assert getattr(pt, name) == getattr(pj, name)
     np.testing.assert_array_equal(pt.abad_location, pj.abad_location)
     np.testing.assert_array_equal(legs.SIDE_SIGN, j_legs.SIDE_SIGN)

@@ -3,13 +3,22 @@
 - an accounting run: batch 2, 4 scenarios, n_knots 13, with a retry chain;
   every scenario finishes and the stats dict has the JAX StreamingSolver's keys;
 - the segmented solve is a pure re-chunking of the monolithic one;
-- constructor validation of the attempt deadlines; the default sampler.
+- constructor validation of the attempt deadlines; the default sampler;
+- ``run(progress_cb=...)`` at B=2 over a pool of 5 (lanes refilled): the JAX
+  StreamingSolver's run loop, replaying the port's per-segment results,
+  calls its callback with the same sequence of stats, and the last call
+  holds the returned stats.  The JAX package's own step is not compiled
+  here (minutes on a CPU); what is held is the loop around it.
 """
 
+import types
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from landing_controller_tpu.parallel import stream as j_stream
 from landing_controller_tpu_torch.api import LandingSolver
 from landing_controller_tpu_torch.parallel import StreamingSolver
 from landing_controller_tpu_torch.solver.ip import IPConfig
@@ -76,3 +85,44 @@ def test_attempt_deadlines_need_guess_families():
     StreamingSolver(s, batch=2, sampler=_sampler, attempt_iters=(10, 10))
     # no sampler given: the drop sampler, from a generator seeded 0
     assert StreamingSolver(s, batch=2).sampler(1)[0].shape == (1, 6)
+
+
+def _jax_callbacks(results, P, B, n_attempts):
+    """JAX's ``StreamingSolver.run(P, progress_cb=...)`` with its step
+    replaced by one that returns the port's packed results of each segment
+    in turn (the last one again for the extra step JAX dispatches while it
+    reads); returns (the callback's stats, the returned stats)."""
+    ss = object.__new__(j_stream.StreamingSolver)
+    ss.batch, ss.sampler, ss.n_attempts, ss.collect_z = B, _sampler, n_attempts, False
+    ss.solver = types.SimpleNamespace(dtype=jnp.float32)
+    k = iter(range(10**6))
+    ss.get_step = lambda P_: lambda *args: types.SimpleNamespace(
+        res=results[min(next(k), len(results) - 1)])
+    ss._pool_states = lambda qc, qdc, v: jnp.zeros(1)
+    ss._make_carry = lambda *args: None
+    calls = []
+    return calls, ss.run(P, progress_cb=calls.append)
+
+
+def test_progress_cb_follows_jax():
+    ss = StreamingSolver(_solver(retry_guess="reference"), batch=2, segment=6,
+                         sampler=_sampler, attempt_iters=(12, 6))
+    step = ss.get_step(5)
+    results = []
+
+    def recording(pool, carry):
+        carry = step(pool, carry)
+        results.append(carry.res.cpu().numpy())
+        return carry
+
+    ss._step_cache[5] = recording
+    calls = []
+    stats = ss.run(5, progress_cb=calls.append)
+    assert stats["n_finished"] == 5 and len(calls) == len(results) >= 3
+    j_calls, j_stats = _jax_callbacks(results, 5, 2, ss.n_attempts)
+    seq = [(c["n_finished"], c["n_converged"]) for c in calls]
+    assert seq == [(c["n_finished"], c["n_converged"]) for c in j_calls]
+    assert seq == sorted(seq) and seq[0][0] < 5  # cumulative, lanes refilled
+    for got in (calls[-1], j_calls[-1], j_stats):
+        for key in STATS_KEYS - {"wall_s", "converged_per_sec"}:
+            np.testing.assert_array_equal(got[key], stats[key])
