@@ -87,9 +87,21 @@ Phases (any failure exits nonzero, before the result line):
    aggregated into one record) and ``examples.solve_landing --cascade
    --plot`` (the HTML viewer) under ``build/``.
 
-Phases 7, 10-20 and phase 21's two side runs go side by side with phase
-5's gentle drop, one spawned process each; their wall times include one
-another's share of the card and of the host's cores.
+22. the convergence diagnostics at cut depth (PERF.md §13):
+   ``tools.iter_bench``'s r2-bench-baseline and lean-gn configurations at
+   B=64 over two 20-iteration segments, right after phase 9 and alone on
+   the card, beside phase 9's host and device time per iteration; then,
+   beside phases 10-20, ``tools.conv_battery`` (baseline-200, loqo-200),
+   ``tools.diag_conv`` on cri, ``tools.fail_taxonomy`` and
+   ``tools.tune_sweep lean`` at 30 iterations (B=16, tune_sweep its own
+   64), each record read back under ``build/`` and held to the JAX tool's
+   keys, finite values, the iteration cap and 6 ``qd_inverse`` launches per
+   batch iteration.
+
+Phases 7, 10-20, phase 21's two side runs and phase 22's four tools go side
+by side with phase 5's gentle drop, one spawned process each (the tools
+share one); their wall times include one another's share of the card and of
+the host's cores.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and the ``{"ok": true, "device": ...}`` line.
@@ -1531,12 +1543,163 @@ def example_phase(torch, card, launches):
         raise AssertionError("the example failed its checks")
 
 
+# phase 22: the convergence diagnostics at cut depth (PERF.md §13).  iter_bench
+# runs two of its quick configurations with a budget of two segments (of
+# 20 iterations), alone on the card; the other four tools run beside phases
+# 10-20 at batch DIAG_BATCH (tune_sweep keeps its own 64) and DIAG_MAX_ITER
+# iterations.  On a slow host the script reached 1102 s of its 1200 s with
+# 100 iterations there and B=32, 60 iterations here (PERF.md §13)
+ITER_BENCH_CONFIGS, ITER_BENCH_ITERS = ("r2-bench-baseline", "lean-gn"), 40
+CONV_BATTERY_RUNS = ("baseline-200", "loqo-200")
+DIAG_BATCH, DIAG_MAX_ITER = 16, 30
+
+
+def check_diag_record(label, rec, keys, cap, iters, passes=1):
+    """A tool's record (or one run of it): the keys ``keys``, every number
+    finite, the iterations ``iters`` at most ``cap``, at most ``cap`` batch
+    iterations in each of its ``passes`` solves, and 6 qd_inverse launches
+    per batch iteration (one per cyclic-reduction level of the 21-block
+    horizon)."""
+    missing = [k for k in keys if k not in rec]
+    if missing:
+        raise AssertionError(f"{label}: the record lacks {missing}")
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for y in x.values() for v in numbers(y)]
+        if isinstance(x, list):
+            return [v for y in x for v in numbers(y)]
+        return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+    if not np.isfinite(numbers(rec)).all():
+        raise AssertionError(f"{label}: non-finite numbers in the record")
+    if max(iters) > cap:
+        raise AssertionError(f"{label}: {max(iters)} iterations over the cap {cap}")
+    n_iter, n_launch = rec["batch_iterations"], rec["qd_inverse_launches"]
+    if not 0 < n_iter <= passes * cap:
+        raise AssertionError(f"{label}: {n_iter} batch iterations in {passes} solves of at most "
+                             f"{cap}")
+    if n_launch != 6 * n_iter:
+        raise AssertionError(f"{label}: {n_launch} qd_inverse launches in {n_iter} batch "
+                             f"iterations, not 6 per iteration")
+
+
+def iter_bench_phase(torch, card, launches, phase9):
+    """Phase 22, alone on the card after phase 9: tools.iter_bench's
+    configurations ITER_BENCH_CONFIGS at B=64 over two segments of half of
+    ITER_BENCH_ITERS (the first one untimed), beside phase 9's srbm_lcp host and device ms
+    per iteration ``phase9``."""
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools import iter_bench
+
+    runs = {name: (B, kw) for name, B, kw in iter_bench.QUICK_RUNS}
+    qd_inverse.launches = 0
+    t0 = time.time()
+    recs = [iter_bench.run_config(name, *runs[name], "cuda", n_iters=ITER_BENCH_ITERS)
+            for name in ITER_BENCH_CONFIGS]
+    launches["iter_bench"] = qd_inverse.launches
+    for rec in recs:
+        label = f"iter_bench {rec['name']}"
+        check_diag_record(label, rec, iter_bench.RUN_KEYS, ITER_BENCH_ITERS, [rec["iters_p90"]])
+        log(f"[diagnostics] {label} B={rec['B']}, {ITER_BENCH_ITERS} iterations on {card}: "
+            f"{rec['ms_per_iter_batch']} ms per batch iteration ({rec['us_per_iter_lane']} us per "
+            f"lane), compile_s {rec['compile_s']}, conv {rec['conv']}, iters p50 "
+            f"{rec['iters_p50']:.0f} p90 {rec['iters_p90']:.0f}, est_solves_s "
+            f"{rec['est_solves_s']}, qd_inverse launches {rec['qd_inverse_launches']} in "
+            f"{rec['batch_iterations']} batch iterations")
+    if sum(rec["qd_inverse_launches"] for rec in recs) != launches["iter_bench"]:
+        raise AssertionError(f"iter_bench: its records miss some of its "
+                             f"{launches['iter_bench']} qd_inverse launches")
+    log(f"[diagnostics] iter_bench r2-bench-baseline {recs[0]['ms_per_iter_batch']} ms per batch "
+        f"iteration (monotone, no corrector) against phase 9's srbm_lcp (the bench's loqo with "
+        f"a corrector) host {phase9[0]:.1f} ms, device busy {phase9[1]:.2f} ms per iteration; "
+        f"the phase {time.time() - t0:.1f} s")
+
+
+def diagnostics_phase(torch, card, launches):
+    """Phase 22, beside phases 10-20: tools.conv_battery (CONV_BATTERY_RUNS),
+    diag_conv on cri, fail_taxonomy and tune_sweep ``lean`` at cut depth,
+    each record read back and checked, its launches against the count of
+    the tool's run."""
+    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
+    from landing_controller_tpu_torch.tools import conv_battery, diag_conv, fail_taxonomy, tune_sweep
+
+    cap, B = DIAG_MAX_ITER, DIAG_BATCH
+    os.makedirs(BUILD_OUT, exist_ok=True)
+
+    def counted_run(name, fn, launches_of):
+        qd_inverse.launches = 0
+        t0 = time.time()
+        out = fn()
+        launches[name] = qd_inverse.launches
+        if launches_of(out) != launches[name]:
+            raise AssertionError(f"{name}: its record holds {launches_of(out)} of its "
+                                 f"{launches[name]} qd_inverse launches")
+        return out, time.time() - t0
+
+    def tool(name, module, argv, launches_of=lambda rec: rec["qd_inverse_launches"]):
+        path = os.path.join(BUILD_OUT, f"{name}.json")
+        if os.path.exists(path):
+            os.remove(path)
+
+        def main():
+            module.main(argv + ["--max-iter", str(cap), "--out", path])
+            with open(path) as f:
+                return json.load(f)
+
+        return counted_run(name, main, launches_of)
+
+    runs = dict(conv_battery.QUICK_RUNS)
+    recs, wall = counted_run(
+        "conv_battery",
+        lambda: [conv_battery.run_config(n, B, runs[n], "cuda", max_iter=cap)
+                 for n in CONV_BATTERY_RUNS],
+        lambda recs: sum(rec["qd_inverse_launches"] for rec in recs))
+    for rec in recs:
+        label = f"conv_battery {rec['name']}"
+        check_diag_record(label, rec, conv_battery.RUN_KEYS, cap, [rec["iters_p90"]])
+        log(f"[diagnostics] {label} B={B} max_iter {cap} on {card}: conv {rec['conv']}, iters "
+            f"mean {rec['iters_mean']} p50 {rec['iters_p50']:.0f} p90 {rec['iters_p90']:.0f}, "
+            f"failed {rec['n_fail']} (kkt only {rec['fail_kkt_only']}), qd_inverse launches "
+            f"{rec['qd_inverse_launches']} in {rec['batch_iterations']} batch iterations")
+    log(f"[diagnostics] conv_battery: {wall:.1f} s")
+
+    rec, wall = tool("diag_conv", diag_conv, [str(B), "cri"])
+    check_diag_record("diag_conv", rec, diag_conv.RECORD_KEYS, cap, [rec["it_max"]], passes=2)
+    log(f"[diagnostics] diag_conv B={B} cri monotone legacy max_iter {cap} on {card}: timed pass "
+        f"{rec['wall_s']:.2f} s (first {rec['first_pass_s']:.2f} s), conv {rec['conv']:.3f}, it "
+        f"p50/p90/max {rec['it_p50']:.0f}/{rec['it_p90']:.0f}/{rec['it_max']}, solves/s "
+        f"{rec['solves_s']:.2f}, {len(rec['lanes'])} failed lanes' histories; qd_inverse launches "
+        f"{rec['qd_inverse_launches']} in {rec['batch_iterations']} batch iterations (two "
+        f"passes); tool wall {wall:.1f} s")
+
+    rec, wall = tool("fail_taxonomy", fail_taxonomy, [str(B)])
+    check_diag_record("fail_taxonomy", rec, fail_taxonomy.RECORD_KEYS, cap,
+                      [lane["it"] for lane in rec["failed_lanes"]] + [0])
+    log(f"[diagnostics] fail_taxonomy B={B} loqo max_iter {cap} on {card}: conv {rec['conv']:.3f}, "
+        f"{len(rec['failed_lanes'])} failed lanes, dominant groups "
+        f"{rec.get('dominant_group_counts', {})}; qd_inverse launches {rec['qd_inverse_launches']} "
+        f"in {rec['batch_iterations']} batch iterations; tool wall {wall:.1f} s")
+
+    rec, wall = tool("tune_sweep", tune_sweep, ["lean"],
+                     lambda rec: rec["configs"]["lean"]["qd_inverse_launches"])
+    lean = rec["configs"]["lean"]
+    check_diag_record("tune_sweep lean", lean, tune_sweep.RUN_KEYS, cap, [lean["it_p90"]],
+                      passes=2)
+    log(f"[diagnostics] tune_sweep lean B={lean['B']} max_iter {cap} on {card}: wall "
+        f"{lean['wall_s']:.2f} s (comp {lean['comp_s']:.2f} s), conv {lean['conv']:.3f}, it "
+        f"p50/p90 {lean['it_p50']:.0f}/{lean['it_p90']:.0f}, solves/s {lean['solves_s']:.2f}; "
+        f"qd_inverse launches {lean['qd_inverse_launches']} in {lean['batch_iterations']} batch "
+        f"iterations (two passes); tool wall {wall:.1f} s")
+
+
 SIDE_PHASES = ("dense", "eeparam", "backends", "cascade", "factory", "warmstart", "montecarlo",
-               "f64", "dynamics", "vbl", "deploy", "montecarlo_100k", "example", "variants")
+               "f64", "dynamics", "vbl", "deploy", "montecarlo_100k", "example", "variants",
+               "diagnostics")
 
 
 def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
-    """One of phases 10-20 or phase 21's side runs in a process of its own;
+    """One of phases 10-20 or phase 21's and phase 22's side runs in a process of its own;
     returns its kernel launch counts {path: launches} and its readings
     {name: value} for the checks across phases."""
     import torch
@@ -1568,6 +1731,8 @@ def side_phase(name, card, qk, qdk, kino_ref, vbl_traj, stream_ref):
         example_phase(torch, card, launches)
     elif name == "variants":
         variants_phase(torch, card, launches, "cuda")
+    elif name == "diagnostics":
+        diagnostics_phase(torch, card, launches)
     else:
         {"montecarlo": montecarlo_phase, "f64": f64_phase}[name](torch, card, launches, "cuda",
                                                                  readings)
@@ -1921,12 +2086,17 @@ def main() -> int:
         raise AssertionError("the f64 chol_inverse entry point failed its checks")
 
     # ---- 9. where one batch-iteration's time goes (B=64; the dense path B=32)
-    profile_iteration(torch, solver, *bench_sampler(2)(64), "srbm_lcp", card)
+    phase9_srbm = profile_iteration(torch, solver, *bench_sampler(2)(64), "srbm_lcp", card)
     profile_iteration(torch, kino, *sample_drop_scenarios(12, 64), "kinodynamic", card)
     volt = LandingSolver("kinodynamic_voltage", dtype=torch.float32, device="cuda")
     profile_iteration(torch, volt, *sample_drop_scenarios(12, 32), "kinodynamic_voltage (dense)",
                       card)
     log(f"[phases 1-9] {time.time() - t_start:.1f} s")
+
+    # ---- 22. the convergence diagnostics: iter_bench alone on the card (the
+    # other four tools go with phases 10-20)
+    iter_bench_phase(torch, card, launches, phase9_srbm)
+    log(f"[phase 22 iter_bench] {time.time() - t_start:.1f} s")
 
     # ---- 21. the entry points: the port's bench at its full pool, alone on
     # the card (its two side runs go with phases 10-20)
@@ -1935,12 +2105,12 @@ def main() -> int:
     # ---- 10-20. the dense path, EEParamSolver, the backends, cascade and
     # replan, the factory and training, the warm-start comparison, the
     # Monte-Carlo sweep, f64, the dynamics layer, VBL and the deployment
-    # surface, and phase 21's Monte-Carlo record and example: thirteen
-    # processes side by side on the card.  Each
-    # path is host-bound (the device idles 75-95% of an iteration, phase 9),
-    # so together they take about as long as the longest chain (factory ->
-    # warm start); their wall times include the others' share of the card
-    # and the host's cores
+    # surface, phase 7, phase 21's Monte-Carlo record and example, and phase
+    # 22's four other tools: fifteen processes side by side on the card.
+    # Each path is host-bound (the device idles 75-95% of an iteration,
+    # phase 9), so together they take about as long as the longest of them;
+    # their wall times include the others' share of the card and the host's
+    # cores
     log(f"[phase 21 bench] {time.time() - t_start:.1f} s")
     kino_ref = {"converged": sol.converged.cpu().numpy(), "z": sol.z.cpu().numpy(),
                 "cost": sol.cost.cpu().numpy()}
@@ -1976,7 +2146,8 @@ def main() -> int:
     solver_paths = ("srbm_lcp", "kinodynamic", "sliding", "contact_scheduled", "ccc",
                     "srbm_lcp_cri_backend", "cascade", "replan", "factory", "warmstart",
                     "montecarlo", "foot_sweep", "srbm_lcp_f32", "artifact", "stream_aot", "bench",
-                    "montecarlo_100k", "solve_landing")
+                    "montecarlo_100k", "solve_landing", "iter_bench", "conv_battery", "diag_conv",
+                    "fail_taxonomy", "tune_sweep")
     f64_paths = ("srbm_lcp_f64", "foot_sweep_f64")
     kernels = [{
         "name": "qd_inverse",

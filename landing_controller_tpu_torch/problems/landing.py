@@ -146,6 +146,14 @@ class LandingConfig:
     )
 
     @property
+    def n_states(self) -> int:
+        return 12
+
+    @property
+    def n_controls(self) -> int:
+        return 24
+
+    @property
     def n_joints(self) -> int:
         return 12 if self.kinodynamic else 0
 

@@ -696,8 +696,10 @@ def solve(
     chunk = n_steps if segment_iters is not None else _SYNC_EVERY
     taken = 0
     while taken < n_steps:
-        for _ in range(min(chunk, n_steps - taken)):
+        n = min(chunk, n_steps - taken)
+        for _ in range(n):
             st = tree_where(running(st), prog.body(st), st)
+        solve.batch_iterations += n
         taken += chunk
         if segment_iters is None and not bool(running(st).any()):
             break
@@ -708,6 +710,11 @@ def solve(
         # lane at the iteration cap can never progress again: mark it done
         return result, prog.settle(st, result)
     return result
+
+
+# the iterations run over the whole batch (masked lanes included), counted as
+# ops.pallas_blocks counts kernel launches: a caller reads the difference
+solve.batch_iterations = 0
 
 
 def init_state(cost_fn, eq_fn, ineq_fn, z0, cfg: IPConfig, y0=None, lam0=None, s0=None) -> IPState:

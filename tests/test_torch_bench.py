@@ -112,7 +112,9 @@ def test_main_prints_snapshots_then_the_row(capsys):
 
 ENTRY_POINTS = ("bench", "tools.montecarlo_100k", "tools.train_warmstart",
                 "tools.warmstart_compare", "tools.eeparam_bench", "tools.kino_battery",
-                "tools.cascade_sweep", "examples.solve_landing", "parallel.montecarlo")
+                "tools.cascade_sweep", "examples.solve_landing", "parallel.montecarlo",
+                "tools.conv_battery", "tools.diag_conv", "tools.fail_taxonomy", "tools.iter_bench",
+                "tools.tune_sweep")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -114,3 +114,30 @@ def test_dynamics_inputs_are_seeded_configurations():
     assert ((q[:, 2] >= 0.1) & (q[:, 2] <= 0.7)).all() and (np.abs(q[:, 3:6]) <= 0.4).all()
     assert chip_smoke._rel_err(np.array([1.0, 2.0]), np.array([1.0, 2.0 + 4e-9])) == \
         pytest.approx(2e-9)
+
+
+GOOD_RECORD = {"B": 2, "conv": 0.5, "it_max": 3, "lanes": [{"kkt": [1.0, 2.0]}],
+               "qd_inverse_launches": 18, "batch_iterations": 3}
+
+
+@pytest.mark.parametrize("change,fault", [
+    ({}, None),
+    ({"conv": None}, "lacks"),
+    ({"lanes": [{"kkt": [1.0, float("nan")]}]}, "non-finite"),
+    ({"it_max": 4}, "over the cap"),
+    ({"qd_inverse_launches": 12}, "not 6 per iteration"),
+    ({"qd_inverse_launches": 0, "batch_iterations": 0}, "batch iterations in 1 solves"),
+    ({"qd_inverse_launches": 24, "batch_iterations": 4}, "batch iterations in 1 solves"),
+])
+def test_diag_record_check(change, fault):
+    """Phase 22's check of a diagnostics tool's record: its keys, finite
+    numbers, the iteration cap (of the lanes and of the batch), 6 qd_inverse
+    launches per batch iteration."""
+    rec = {k: v for k, v in {**GOOD_RECORD, **change}.items() if v is not None}
+    check = lambda: chip_smoke.check_diag_record("t", rec, ("B", "conv", "lanes"), 3,  # noqa: E731
+                                                  [rec["it_max"]])
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(AssertionError, match=fault):
+            check()

@@ -4,8 +4,8 @@ The bench's solver settings (loqo barrier rule, one corrector, ladder
 (0, 1), 4 line-search candidates, ballistic cold guess, production dt
 schedule) at f64 and n_knots 21, on the CPU: the JAX solve with
 kkt_backend="cri_ref" and max_iter=5 against the port's.  The iterate z
-(scaled by max(1, |z|)), the barrier parameter and the step length of every
-iteration agree to 1e-8.
+(scaled by max(1, |z|)), the KKT error, the barrier parameter and the step
+length of every iteration agree to 1e-8.
 """
 
 from functools import partial
@@ -54,12 +54,15 @@ def test_first_five_iterates_match_jax():
         step = j_make_step(prob, theta, js.config, snlp)
         res = j_solve(snlp.cost, snlp.eq, snlp.ineq, snlp.to_scaled(z0), js.config,
                       relax_mask=prob.relax_mask(), newton_step_fn=step)
-        return snlp.from_scaled(res.z), res.iterations, res.mu_history, res.alpha_history
+        return (snlp.from_scaled(res.z), res.iterations, res.kkt_history, res.mu_history,
+                res.alpha_history)
 
-    z_j, it_j, mu_j, alpha_j = (np.asarray(a) for a in jax_solve(jnp.asarray(q0), jnp.asarray(qd0)))
+    z_j, it_j, kkt_j, mu_j, alpha_j = (np.asarray(a) for a in jax_solve(jnp.asarray(q0),
+                                                                        jnp.asarray(qd0)))
     summary, state = ts._segment_impl(q0[None], qd0[None], None, 5)
     assert int(state.it[0]) == int(it_j) == 5
     scale = np.maximum(1.0, np.abs(z_j))
     np.testing.assert_allclose(summary["z"][0].numpy() / scale, z_j / scale, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(state.kkt_hist[0].numpy(), kkt_j, rtol=1e-8, atol=1e-12)
     np.testing.assert_allclose(state.mu_hist[0].numpy(), mu_j, rtol=1e-8, atol=1e-12)
     np.testing.assert_allclose(state.alpha_hist[0].numpy(), alpha_j, rtol=1e-8, atol=1e-12)

@@ -89,6 +89,8 @@ def test_other_problem_kinds_not_ported():
     pj = JLandingProblem(JLandingConfig(kinodynamic=True, voltage_limit=True, n_knots=7),
                          j_get_robot_params("mc3D"))
     assert (pt.n_vars, pt.n_eq, pt.n_ineq) == (pj.n_vars, pj.n_eq, pj.n_ineq)
+    assert (pt.config.n_states, pt.config.n_controls) == (pj.config.n_states,
+                                                          pj.config.n_controls) == (12, 24)
     assert pt.ineq_row_labels() == pj.ineq_row_labels()
     _close(pt.relax_mask(), pj.relax_mask(), 0)
     assert pt.ineq_row_labels()[-1] == "k5:volt[23]"
