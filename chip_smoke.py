@@ -124,6 +124,8 @@ import time
 
 import numpy as np
 
+from landing_controller_tpu_torch import tracing
+
 # the theoretical peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes
 # per second, and f32 and f64 operations per second outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -631,7 +633,6 @@ def backends_phase(torch, card, srbm, launches, dev):
     """Phase 12: srbm_lcp solve_batch under the three structured backends,
     with the bench path's settings and its first-attempt deadline."""
     from landing_controller_tpu_torch import LandingSolver
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
 
     q, qd = bench_sampler(5)(N_BACKENDS)
     sols = {}
@@ -640,9 +641,9 @@ def backends_phase(torch, card, srbm, launches, dev):
             "srbm_lcp", dtype=torch.float32, guess=srbm.guess, theta_overrides=srbm.theta_overrides,
             config=dataclasses.replace(srbm.config, kkt_backend=backend,
                                        max_iter=BENCH_FIRST_DEADLINE), device=dev)
-        qd_inverse.launches = 0
+        tracing.reset()
         sol, wall, _ = run_timed(torch, lambda: solver.solve_batch(q, qd))
-        n_launch = qd_inverse.launches
+        n_launch = tracing.counters()["qd_inverse.launches"]
         conv, line = batch_summary(sol, wall)
         log(f"[backends] srbm_lcp kkt_backend={backend} B={N_BACKENDS} max_iter "
             f"{BENCH_FIRST_DEADLINE} on {card}: {line}, qd_inverse launches {n_launch}")
@@ -671,7 +672,6 @@ def cascade_phase(torch, card, kino_ref, srbm, qk, qdk, launches, dev):
     (the solvers of the port's tools/cascade_sweep.py) on the first drops of
     phase 6, and the receding-horizon replanner on the bench path's srbm_lcp
     settings."""
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools.cascade_sweep import cascade_solvers
     from landing_controller_tpu_torch.warmstart.cascade import make_cascade
     from landing_controller_tpu_torch.warmstart.replan import Replanner
@@ -682,9 +682,9 @@ def cascade_phase(torch, card, kino_ref, srbm, qk, qdk, launches, dev):
     if not torch.equal(cascade.stage1.build_params(z6, z6).dt, kino.build_params(z6, z6).dt):
         raise AssertionError("cascade: stage 1 is not on the kinodynamic dt schedule")
     q, qd = qk[:N_CASCADE], qdk[:N_CASCADE]
-    qd_inverse.launches = 0
+    tracing.reset()
     (sol2, sol1), wall, peak = run_timed(torch, lambda: cascade(q, qd))
-    launches["cascade"] = qd_inverse.launches
+    launches["cascade"] = tracing.counters()["qd_inverse.launches"]
     conv1, line1 = batch_summary(sol1, wall)
     conv2, line2 = batch_summary(sol2, wall)
     cold = kino_ref["converged"][:N_CASCADE]
@@ -706,10 +706,10 @@ def cascade_phase(torch, card, kino_ref, srbm, qk, qdk, launches, dev):
                    plan_config=dataclasses.replace(srbm.config, max_iter=BENCH_FIRST_DEADLINE),
                    device=dev)
     qr, qdr = bench_sampler(7)(N_REPLAN)
-    qd_inverse.launches = 0
+    tracing.reset()
     plan, wall_p, _ = run_timed(torch, lambda: rp.plan(qr, qdr))
     re, wall_r, _ = run_timed(torch, lambda: rp.replan(Replanner.carry(plan), qr + 1e-3, qdr + 1e-3))
-    launches["replan"] = qd_inverse.launches
+    launches["replan"] = tracing.counters()["qd_inverse.launches"]
     cap = rp.solver_warm.config.max_iter
     conv_p, line_p = batch_summary(plan, wall_p)
     conv_r, line_r = batch_summary(re, wall_r)
@@ -737,17 +737,16 @@ def factory_phase(torch, card, launches, dev):
     from landing_controller_tpu_torch import LandingSolver
     from landing_controller_tpu_torch.analysis import nn_vs_nlp
     from landing_controller_tpu_torch.data import generate_training_data_streaming
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools.common import kino_config
     from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers, train_network
     from landing_controller_tpu_torch.warmstart import nn as wsnn
 
     kino = factory_solvers(dev)[1]
-    qd_inverse.launches = 0
+    tracing.reset()
     data, wall, peak = run_timed(torch, lambda: generate_training_data_streaming(
         kino, N_FACTORY, generator=torch.Generator().manual_seed(0), batch=FACTORY_BATCH,
         segment=50))
-    launches["factory"] = qd_inverse.launches
+    launches["factory"] = tracing.counters()["qd_inverse.launches"]
     m = data["inputs"].shape[0]
     log(f"[factory] streaming kinodynamic N=21 (84-wide blocks, cri), B={FACTORY_BATCH} seg=50, "
         f"max_iter {kino.config.max_iter}, "
@@ -812,7 +811,6 @@ def warmstart_phase(torch, card, launches, dev):
     the factory's kinodynamic solver and the tool's srbm_lcp solver, drops
     of seed 999 (the port's tool: its solvers and its comparison)."""
     from landing_controller_tpu_torch.api import DEFAULT_NN_PATH
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers
     from landing_controller_tpu_torch.tools.warmstart_compare import compare_regimes
     from landing_controller_tpu_torch.warmstart.nn import load_warmstart
@@ -820,9 +818,9 @@ def warmstart_phase(torch, card, launches, dev):
     mlp, stats = load_warmstart(DEFAULT_NN_PATH, device=dev)
     srbm, kino = factory_solvers(dev, WARMSTART_MAX_ITER)
     T, B = WARMSTART_TRIALS, N_WARMSTART
-    qd_inverse.launches = 0
+    tracing.reset()
     res, wall, _ = run_timed(torch, lambda: compare_regimes(kino, srbm, mlp, stats, T, B, 999))
-    launches["warmstart"] = qd_inverse.launches
+    launches["warmstart"] = tracing.counters()["qd_inverse.launches"]
     log(f"[warmstart] B={B}, {T} trial(s) after one untimed pass, max_iter {WARMSTART_MAX_ITER}, "
         f"on {card}: wall_s {wall:.2f}, qd_inverse launches {launches['warmstart']}")
     for k, v in res["t"].items():
@@ -843,7 +841,6 @@ def montecarlo_phase(torch, card, launches, dev, readings):
     settings)."""
     from landing_controller_tpu_torch import LandingSolver
     from landing_controller_tpu_torch.analysis.foot_positions import sweep_foot_positions
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.parallel.montecarlo import monte_carlo_envelope
     from landing_controller_tpu_torch.runtime import ResultLog, native_available, read_result_log
 
@@ -854,11 +851,11 @@ def montecarlo_phase(torch, card, launches, dev, readings):
     path = os.path.join(BUILD_OUT, "montecarlo.log")
     if os.path.exists(path):
         os.remove(path)
-    qd_inverse.launches = 0
+    tracing.reset()
     with ResultLog(path) as rlog:
         res, wall, _ = run_timed(torch, lambda: monte_carlo_envelope(
             solver, N_MONTECARLO, chunk=MC_CHUNK, seed=0, result_log=rlog))
-    launches["montecarlo"] = qd_inverse.launches
+    launches["montecarlo"] = tracing.counters()["qd_inverse.launches"]
     recs = read_result_log(path)
     log(f"[montecarlo] srbm_lcp N=21, default settings, {N_MONTECARLO} drops in chunks of "
         f"{MC_CHUNK}, native pool, on {card}: success_rate {res['success_rate']:.4f}, solves/s "
@@ -888,10 +885,10 @@ def montecarlo_phase(torch, card, launches, dev, readings):
     ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float32, device=dev,
                         config=dataclasses.replace(ccc_cfg, max_iter=150))
     vx = np.linspace(-1.0, 1.0, N_SWEEP)
-    qd_inverse.launches = 0
+    tracing.reset()
     out, wall, _ = run_timed(torch, lambda: sweep_foot_positions(
         ccc, [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5], 3, vx))
-    launches["foot_sweep"] = qd_inverse.launches
+    launches["foot_sweep"] = tracing.counters()["qd_inverse.launches"]
     readings["foot_sweep_f32"] = [round(o["value"], 3) for o in out if o["converged"]]
     log(f"[montecarlo] sweep_foot_positions ccc N=41 over v_x {vx.round(3).tolist()}, on {card}: "
         f"converged {sum(o['converged'] for o in out)}/{N_SWEEP}, wall_s {wall:.2f}, qd_inverse "
@@ -934,7 +931,6 @@ def f64_phase(torch, card, launches, dev, readings):
     16's ccc foot sweep in f64."""
     from landing_controller_tpu_torch import LandingSolver
     from landing_controller_tpu_torch.analysis.foot_positions import sweep_foot_positions
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.warmstart.reference import DT_PRODUCTION
 
     srbm = srbm_lcp_path()[0]
@@ -945,9 +941,9 @@ def f64_phase(torch, card, launches, dev, readings):
         solver = LandingSolver(
             "srbm_lcp", dtype=dtype, guess=srbm.guess, theta_overrides={"dt": dt},
             config=dataclasses.replace(srbm.config, max_iter=BENCH_FIRST_DEADLINE), device=dev)
-        qd_inverse.launches = 0
+        tracing.reset()
         sol, wall, _ = run_timed(torch, lambda: solver.solve_batch(q, qd))
-        n_launch = qd_inverse.launches
+        n_launch = tracing.counters()["qd_inverse.launches"]
         conv[name], line = batch_summary(sol, wall)
         log(f"[f64] srbm_lcp {name} cri B={N_BACKENDS} max_iter {BENCH_FIRST_DEADLINE} on {card}: "
             f"{line}, qd_inverse launches {n_launch}")
@@ -962,10 +958,10 @@ def f64_phase(torch, card, launches, dev, readings):
     ccc = LandingSolver("ccc", n_knots=41, dtype=torch.float64, device=dev,
                         config=dataclasses.replace(ccc_cfg, max_iter=150))
     vx = np.linspace(-1.0, 1.0, N_SWEEP)
-    qd_inverse.launches = 0
+    tracing.reset()
     out, wall, _ = run_timed(torch, lambda: sweep_foot_positions(
         ccc, [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5], 3, vx))
-    launches["foot_sweep_f64"] = qd_inverse.launches
+    launches["foot_sweep_f64"] = tracing.counters()["qd_inverse.launches"]
     got = [round(o["value"], 3) for o in out if o["converged"]]
     readings["foot_sweep_f64"] = got
     cpu_f64 = [v for v in vx.round(3).tolist() if abs(abs(v) - 0.714) > 1e-3]
@@ -1211,7 +1207,6 @@ def load_artifact_child(path, io_path):
     process never imports the port's problems, solver or api."""
     import torch
 
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.runtime.artifact import load_solver
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1222,12 +1217,12 @@ def load_artifact_child(path, io_path):
     t0 = time.time()
     fn = load_solver(path)
     load_s = time.time() - t0
-    qd_inverse.launches = 0
+    tracing.reset()
     t0 = time.time()
     sol = fn(inputs["q"], inputs["qd"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = qd_inverse.launches
+    launches = tracing.counters()["qd_inverse.launches"]
     init, iterate, finish = fn.programs
     n_scaled = fn.header["n_scaled"]
     lanes = init(torch.as_tensor(inputs["q"], device="cuda"),
@@ -1254,7 +1249,6 @@ def deploy_phase(torch, card, launches, dev, kino_ref, qk, qdk, stream_ref):
     from landing_controller_tpu_torch import StreamingSolver
     from landing_controller_tpu_torch.dynamics.legs import leg_torques
     from landing_controller_tpu_torch.models import get_robot_model
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.runtime import enable_persistent_cache, save_solver
     from landing_controller_tpu_torch.viz import export_html, motor_voltages
 
@@ -1312,10 +1306,10 @@ def deploy_phase(torch, card, launches, dev, kino_ref, qk, qdk, stream_ref):
     if loaded.load_step(STEP_PATH, N_SCENARIOS) is not True:
         raise AssertionError("load_step refused the step it was just given")
     load_s = time.time() - t0
-    qd_inverse.launches = 0
+    tracing.reset()
     stats = loaded.run(N_SCENARIOS)
     torch.cuda.synchronize()
-    launches["stream_aot"] = qd_inverse.launches
+    launches["stream_aot"] = tracing.counters()["qd_inverse.launches"]
     other = StreamingSolver(solver, batch=64, segment=24, sampler=bench_sampler(0),
                             attempt_iters=(100, 150))
     refused = other.load_step(STEP_PATH, N_SCENARIOS) is False
@@ -1361,7 +1355,6 @@ def variants_phase(torch, card, launches, dev):
     """Phase 5's gentle drop on the card and on the CPU, and phase 7: the
     srbm variants on the card, one scenario each (beside phases 10-20)."""
     from landing_controller_tpu_torch import IPConfig, LandingSolver
-    from landing_controller_tpu_torch.ops.pallas_blocks import chol_inverse, qd_inverse
     from landing_controller_tpu_torch.solver import structured
 
     # one gentle drop on the card (kernel) and on the CPU (plain versions)
@@ -1384,7 +1377,7 @@ def variants_phase(torch, card, launches, dev):
     def run_variant(name, vsolver, q0, qd0):
         cap = {}
         restore, vsizes = capture_block_inverse_calls(structured, cap, CAPTURE_EVERY)
-        qd_inverse.launches = chol_inverse.launches = 0
+        tracing.reset()
         try:
             t0 = time.time()
             vsol = vsolver.solve(q0, qd0)
@@ -1392,7 +1385,7 @@ def variants_phase(torch, card, launches, dev):
             wall = time.time() - t0
         finally:
             restore()
-        launches[name] = qd_inverse.launches
+        launches[name] = tracing.counters()["qd_inverse.launches"]
         n_levels = cr_launches_per_factor(vsolver.problem.config.n_knots)
         log(f"[{name}] N={vsolver.problem.config.n_knots} on {card}: converged "
             f"{bool(vsol.converged)} in {int(vsol.iterations)} iterations, kkt_error "
@@ -1498,14 +1491,13 @@ def bench_phase(card, launches):
 def montecarlo_record_phase(torch, card, launches):
     """Phase 21, beside phases 10-20: the port's tools.montecarlo_100k over
     two pools, its record read back."""
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools import montecarlo_100k
 
     path = os.path.join(BUILD_OUT, "montecarlo_100k.json")
-    qd_inverse.launches = 0
+    tracing.reset()
     _, wall, _ = run_timed(torch, lambda: montecarlo_100k.main(
         ["--n", str(N_MC_RECORD), "--chunk", str(MC_RECORD_CHUNK), "--out", path]))
-    launches["montecarlo_100k"] = qd_inverse.launches
+    launches["montecarlo_100k"] = tracing.counters()["qd_inverse.launches"]
     with open(path) as f:
         rec = json.load(f)
     region = rec["success_region"]
@@ -1526,15 +1518,14 @@ def example_phase(torch, card, launches):
     """Phase 21, beside phases 10-20: examples.solve_landing --cascade with
     the HTML viewer under build/."""
     from landing_controller_tpu_torch.examples import solve_landing
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
 
     path = os.path.join(BUILD_OUT, "solve_landing.html")
     os.makedirs(BUILD_OUT, exist_ok=True)
     if os.path.exists(path):
         os.remove(path)
-    qd_inverse.launches = 0
+    tracing.reset()
     _, wall, _ = run_timed(torch, lambda: solve_landing.main(["--cascade", "--plot", path]))
-    launches["solve_landing"] = qd_inverse.launches
+    launches["solve_landing"] = tracing.counters()["qd_inverse.launches"]
     with open(path) as f:
         page = f.read()
     log(f"[example] solve_landing --cascade --plot, on {card}: {wall:.1f} s, qd_inverse launches "
@@ -1589,15 +1580,14 @@ def iter_bench_phase(torch, card, launches, phase9):
     configurations ITER_BENCH_CONFIGS at B=64 over two segments of half of
     ITER_BENCH_ITERS (the first one untimed), beside phase 9's srbm_lcp host and device ms
     per iteration ``phase9``."""
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools import iter_bench
 
     runs = {name: (B, kw) for name, B, kw in iter_bench.QUICK_RUNS}
-    qd_inverse.launches = 0
+    tracing.reset()
     t0 = time.time()
     recs = [iter_bench.run_config(name, *runs[name], "cuda", n_iters=ITER_BENCH_ITERS)
             for name in ITER_BENCH_CONFIGS]
-    launches["iter_bench"] = qd_inverse.launches
+    launches["iter_bench"] = tracing.counters()["qd_inverse.launches"]
     for rec in recs:
         label = f"iter_bench {rec['name']}"
         check_diag_record(label, rec, iter_bench.RUN_KEYS, ITER_BENCH_ITERS, [rec["iters_p90"]])
@@ -1621,17 +1611,16 @@ def diagnostics_phase(torch, card, launches):
     diag_conv on cri, fail_taxonomy and tune_sweep ``lean`` at cut depth,
     each record read back and checked, its launches against the count of
     the tool's run."""
-    from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse
     from landing_controller_tpu_torch.tools import conv_battery, diag_conv, fail_taxonomy, tune_sweep
 
     cap, B = DIAG_MAX_ITER, DIAG_BATCH
     os.makedirs(BUILD_OUT, exist_ok=True)
 
     def counted_run(name, fn, launches_of):
-        qd_inverse.launches = 0
+        tracing.reset()
         t0 = time.time()
         out = fn()
-        launches[name] = qd_inverse.launches
+        launches[name] = tracing.counters()["qd_inverse.launches"]
         if launches_of(out) != launches[name]:
             raise AssertionError(f"{name}: its record holds {launches_of(out)} of its "
                                  f"{launches[name]} qd_inverse launches")
@@ -1961,7 +1950,7 @@ def main() -> int:
     cap_srbm = {}
     restore, sizes_srbm = capture_block_inverse_calls(structured, cap_srbm, CAPTURE_EVERY)
     launches = {}
-    qd_inverse.launches = chol_inverse.launches = 0
+    tracing.reset()
     try:
         t0 = time.time()
         stats = ss.run(N_SCENARIOS)
@@ -1969,7 +1958,7 @@ def main() -> int:
         t_run = time.time() - t0
     finally:
         restore()
-    launches["srbm_lcp"] = qd_inverse.launches
+    launches["srbm_lcp"] = tracing.counters()["qd_inverse.launches"]
     log(f"[srbm_lcp] streaming B=64 seg=25 on {card}: n_finished {stats['n_finished']}, "
         f"convergence_rate {stats['convergence_rate']:.4f}, iters_p50 {stats['iters_p50']:.0f}, "
         f"iters_p90 {stats['iters_p90']:.0f}, wall_s {stats['wall_s']:.2f} "
@@ -2004,7 +1993,7 @@ def main() -> int:
     cap_kino = {}
     restore, sizes = capture_block_inverse_calls(structured, cap_kino, CAPTURE_EVERY_KINO)
     torch.cuda.reset_peak_memory_stats()
-    qd_inverse.launches = chol_inverse.launches = 0
+    tracing.reset()
     try:
         t0 = time.time()
         sol = kino.solve_batch(qk, qdk)
@@ -2012,7 +2001,7 @@ def main() -> int:
         t_kino = time.time() - t0
     finally:
         restore()
-    launches["kinodynamic"] = qd_inverse.launches
+    launches["kinodynamic"] = tracing.counters()["qd_inverse.launches"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     conv_k = sol.converged.cpu().numpy()
     its = sol.iterations.cpu().numpy()
@@ -2050,7 +2039,7 @@ def main() -> int:
         for call in sorted(cap)[:12]:
             S = cap[call]
             spd[(label, call)] = S[qd_inverse(S, np_, nd)[1]][:, :np_, :np_].contiguous()
-    qd_inverse.launches = chol_inverse.launches = 0
+    tracing.reset()
     n_spd = 0
     for (label, call), P in sorted(spd.items()):
         Pinv, ok = ops.chol_inverse(P)
@@ -2058,7 +2047,7 @@ def main() -> int:
         if not bool(ok.all()):
             raise AssertionError(f"chol_inverse rejects an SPD sub-block of {label} call {call}")
     torch.cuda.synchronize()
-    launches["chol_inverse"] = chol_inverse.launches
+    launches["chol_inverse"] = tracing.counters()["chol_inverse.launches"]
     log(f"[chol_inverse] entry point on {n_spd} SPD sub-blocks of {len(spd)} captured calls "
         f"(n = 36 and 48): {launches['chol_inverse']} kernel launches, all ok")
     if launches["chol_inverse"] != len(spd) or launches["chol_inverse"] <= 0:
@@ -2068,7 +2057,7 @@ def main() -> int:
                           {call: P for (lab, call), P in spd.items() if lab == label})
     # the same entry point in f64 (the kernel's double instance) on the same
     # sub-blocks, against the plain version in f64 on the CPU
-    chol_inverse.launches = 0
+    tracing.reset()
     err64 = 0.0
     for (label, call), P in sorted(spd.items()):
         Pinv, ok = ops.chol_inverse(P.double())
@@ -2077,7 +2066,7 @@ def main() -> int:
             raise AssertionError(f"chol_inverse f64 rejects an SPD sub-block of {label} call {call}")
         err64 = max(err64, float(((Pinv.cpu() - ref).abs() / ref.abs().amax((1, 2), keepdim=True))
                                  .max()))
-    launches["chol_inverse_f64"] = chol_inverse.launches
+    launches["chol_inverse_f64"] = tracing.counters()["chol_inverse.launches"]
     log(f"[chol_inverse] entry point in f64 on the same {n_spd} sub-blocks: "
         f"{launches['chol_inverse_f64']} kernel launches, all ok, largest error relative to each "
         f"block's largest entry against the plain version in f64 {err64:.3e} (tolerance 1e-6: real "

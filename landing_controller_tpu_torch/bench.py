@@ -158,8 +158,8 @@ def main(argv=None) -> int:
     import torch
 
     from ._device import card_line, resolve_device
-    from .ops.pallas_blocks import qd_inverse
     from .runtime import enable_persistent_cache
+    from .tracing import counters
 
     device = resolve_device(args.device)
     enable_persistent_cache()
@@ -207,12 +207,12 @@ def main(argv=None) -> int:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    qd_inverse.launches = 0
+    launches = counters()["qd_inverse.launches"]
     t0 = time.time()
     stats = ss.run(n, max_wall_s=args.max_wall_s, progress_cb=snapshot)
     sync()
     t_run = time.time() - t0
-    launches = qd_inverse.launches
+    launches = counters()["qd_inverse.launches"] - launches
     if stats["n_finished"] == 0:
         raise RuntimeError(f"no scenario of the pool of {n} finished")
     peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None

@@ -29,12 +29,13 @@ CUDA tensor goes to the kernel in ``csrc/chol_inverse.cu`` (f32 or f64, n up
 to 84) or raises, and follows the TPU kernel's pivot rule; a CPU tensor goes to the
 plain version :func:`chol_inverse_ref` (NaN where the factorization fails).
 
-``qd_inverse.launches`` and ``chol_inverse.launches`` count kernel launches
-(CPU calls do not count).  ``qd_inverse_smem_bytes`` / ``chol_inverse_smem_bytes``
-mirror the kernels' shared-memory layout, ``library_smem_bytes`` reads the
-same figure from the built library, and ``blocks_per_sm`` asks the card how
-many blocks of a kernel instance one SM holds; each takes the dtype (f32 by
-default, f64: twice the bytes).  Every kernel instance exists for f32 and
+The counters ``qd_inverse.launches`` and ``chol_inverse.launches`` of
+:mod:`..tracing` count kernel launches (CPU calls do not count).
+``qd_inverse_smem_bytes`` / ``chol_inverse_smem_bytes`` mirror the kernels'
+shared-memory layout, ``library_smem_bytes`` reads the same figure from the
+built library, and ``blocks_per_sm`` asks the card how many blocks of a
+kernel instance one SM holds; each takes the dtype (f32 by default, f64:
+twice the bytes).  Every kernel instance exists for f32 and
 f64: a float64 tensor on the card goes through the kernel too, never to the
 plain version.
 """
@@ -45,6 +46,7 @@ import ctypes
 
 import torch
 
+from ..tracing import count
 from ._build import load_library
 
 __all__ = ["qd_inverse", "qd_inverse_ref", "make_qd_inverse", "chol_inverse", "chol_inverse_ref"]
@@ -190,7 +192,7 @@ def _qd_inverse_cuda(S, np_: int, nd: int):
         raise ValueError(f"qd_inverse kernel takes blocks up to {MAX_BLOCK} wide with np >= 1, "
                          f"got ({np_}, {nd})")
     out = _launch("qd_inverse", _aligned(S), np_, nd)
-    qd_inverse.launches += 1
+    count("qd_inverse.launches")
     return out
 
 
@@ -219,9 +221,6 @@ def qd_inverse(S, np_: int, nd: int):
     """Batched quasi-definite block inverse (m, BS, BS) -> (Sinv, ok (m,) bool)."""
     _check_device(S, "qd_inverse")
     return _qd_inverse_op(S, np_, nd)
-
-
-qd_inverse.launches = 0
 
 
 def make_qd_inverse(np_: int, nd: int):
@@ -256,7 +255,7 @@ def _chol_inverse_cuda(A):
     if not 1 <= A.shape[1] <= MAX_BLOCK:
         raise ValueError(f"chol_inverse kernel takes blocks up to {MAX_BLOCK} wide, got {A.shape[1]}")
     out = _launch("chol_inverse", _aligned(A), A.shape[1])
-    chol_inverse.launches += 1
+    count("chol_inverse.launches")
     return out
 
 
@@ -271,6 +270,3 @@ def chol_inverse(A):
     """Batched SPD inverse (m, n, n) -> (Ainv, ok (m,) bool)."""
     _check_device(A, "chol_inverse")
     return _chol_inverse_op(A)
-
-
-chol_inverse.launches = 0

@@ -42,9 +42,10 @@ from .._tree import tree_cat, tree_map, tree_stack, tree_where
 from ..problems.landing import LandingParams
 from ..solver.ip import IPState
 from ..solver.scaling import ScaledNLP
+from ..tracing import count, span
 
 # the saved step's file: this line, one JSON header line, then the programs
-STEP_MAGIC = b"LCSTRMT1\n"
+STEP_MAGIC = b"LCSTRMT2\n"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +78,8 @@ class _StreamCarry:
     lanes: _Lanes
     cursor: torch.Tensor  # next unassigned pool index
     active: torch.Tensor  # (B,) lane owns an unharvested scenario
-    # packed per-scenario results, (4, P+1): finished flag, converged flag,
-    # iterations, constraint violation; column P is the dump slot
+    # packed per-scenario results, (5, P+1): finished flag, converged flag,
+    # iterations, constraint violation, attempts; column P is the dump slot
     res: torch.Tensor
     res_z: torch.Tensor  # (P+1, n_vars) harvested solutions (collect_z) or (P+1, 0)
 
@@ -147,7 +148,8 @@ class StreamingSolver:
 
     def _iterate(self, lanes: _Lanes) -> _Lanes:
         """One masked IP iteration of the lanes (the saved iteration program)."""
-        prog = self.solver.program(lanes.snlp(self.solver.problem))
+        with span("solver.rebuild"):
+            prog = self.solver.program(lanes.snlp(self.solver.problem))
         return dataclasses.replace(lanes, state=prog.step(lanes.state))
 
     def _compose(self, iterate, harvest):
@@ -157,8 +159,11 @@ class StreamingSolver:
         def step(pool, carry):
             lanes = carry.lanes
             for _ in range(self.segment):
-                lanes = iterate(lanes)
-            return harvest(pool, dataclasses.replace(carry, lanes=lanes))
+                with span("solver.iteration"):
+                    lanes = iterate(lanes)
+            count("ip.iterations", self.segment)
+            with span("stream.harvest"):
+                return harvest(pool, dataclasses.replace(carry, lanes=lanes))
 
         return step
 
@@ -248,8 +253,9 @@ class StreamingSolver:
         V = self.n_attempts
         dev = carry.res.device
         att = torch.as_tensor(self.attempt_iters[:V] or (10**9,), device=dev)
-        snlp = carry.lanes.snlp(self.solver.problem)
-        prog = self.solver.program(snlp)
+        with span("solver.rebuild"):
+            snlp = carry.lanes.snlp(self.solver.problem)
+            prog = self.solver.program(snlp)
         result = prog.finish(carry.lanes.state)
         new_state = prog.settle(carry.lanes.state, result)
         conv = result.converged
@@ -269,6 +275,7 @@ class StreamingSolver:
         res[1, sid_sc] = conv.to(res.dtype)
         res[2, sid_sc] = total_iters.to(res.dtype)
         res[3, sid_sc] = result.constr_viol.to(res.dtype)
+        res[4, sid_sc] = (carry.lane_variant + 1).to(res.dtype)
         res_z = carry.res_z
         if self.collect_z:
             res_z = res_z.clone()
@@ -329,7 +336,7 @@ class StreamingSolver:
             lanes=tree_map(lambda leaf: leaf[0, first], pool),
             cursor=torch.tensor(min(B, P), device=dev),
             active=active0,
-            res=torch.zeros((4, P + 1), dtype=self.solver.dtype, device=dev),
+            res=torch.zeros((5, P + 1), dtype=self.solver.dtype, device=dev),
             res_z=torch.zeros((P + 1, n_vars), dtype=self.solver.dtype, device=dev),
         )
 
@@ -347,30 +354,36 @@ class StreamingSolver:
         and the sequence of calls is the same)."""
         B = self.batch
         P = int(n_scenarios)
-        q_np, qd_np = self.sampler(P)
-        solver = self.solver
-        pool_q = torch.as_tensor(np.asarray(q_np), dtype=solver.dtype, device=solver.device)
-        pool_qd = torch.as_tensor(np.asarray(qd_np), dtype=solver.dtype, device=solver.device)
-        ics = np.concatenate([np.asarray(q_np), np.asarray(qd_np)], axis=1)
+        with span("stream.pool"):
+            q_np, qd_np = self.sampler(P)
+            solver = self.solver
+            pool_q = torch.as_tensor(np.asarray(q_np), dtype=solver.dtype, device=solver.device)
+            pool_qd = torch.as_tensor(np.asarray(qd_np), dtype=solver.dtype, device=solver.device)
+            ics = np.concatenate([np.asarray(q_np), np.asarray(qd_np)], axis=1)
 
-        pad = -P % B
-        q_pad = torch.cat([pool_q, pool_q[-1:].expand(pad, 6)]) if pad else pool_q
-        qd_pad = torch.cat([pool_qd, pool_qd[-1:].expand(pad, 6)]) if pad else pool_qd
-        pool = self._pool_lanes(q_pad, qd_pad)
-        carry = self._make_carry(pool, P)
+            pad = -P % B
+            q_pad = torch.cat([pool_q, pool_q[-1:].expand(pad, 6)]) if pad else pool_q
+            qd_pad = torch.cat([pool_qd, pool_qd[-1:].expand(pad, 6)]) if pad else pool_qd
+            pool = self._pool_lanes(q_pad, qd_pad)
+            carry = self._make_carry(pool, P)
 
         step = self.get_step(P)
         t0 = time.time()
         while True:
-            carry = step(pool, carry)
-            res_np = carry.res.cpu().numpy()  # the one host read per segment
+            with span("stream.segment"):
+                carry = step(pool, carry)
+            with span("stream.read"):
+                res_np = carry.res.cpu().numpy()  # the one host read per segment
             if progress_cb is not None:
-                progress_cb(self._stats(res_np, ics, P, B, t0))
+                with span("stream.callback"):
+                    progress_cb(self._stats(res_np, ics, P, B, t0))
             if res_np[0, :P].sum() >= P:
                 break
             if max_wall_s is not None and time.time() - t0 > max_wall_s:
                 break
         out = self._stats(res_np, ics, P, B, t0)
+        count("stream.finished", out["n_finished"])
+        count("stream.retried", out["n_retried"])
         if self.collect_z:
             out["z"] = carry.res_z.cpu().numpy()[:P][res_np[0, :P] > 0.5]
         return out
@@ -386,6 +399,7 @@ class StreamingSolver:
             "n_started": int(min(P, fin.sum() + B)),
             "n_finished": int(fin.sum()),
             "n_converged": int(conv.sum()),
+            "n_retried": int((res_np[4, :P][fin] > 1.5).sum()),
             "convergence_rate": float(conv.mean()) if conv.size else 0.0,
             "converged_per_sec": float(conv.sum() / wall),
             "iters_p50": float(np.percentile(its, 50)) if its.size else -1.0,

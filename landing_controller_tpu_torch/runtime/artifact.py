@@ -41,6 +41,7 @@ from .._device import resolve_device
 from ..ops import _build
 from ..ops import pallas_blocks  # noqa: F401  (registers the kernels' custom ops)
 from ..solution import LandingSolution
+from ..tracing import count
 from .programs import read_programs, trace_program, write_programs
 
 MAGIC = b"LCTORCH1\n"
@@ -167,8 +168,10 @@ def load_solver(path: str, device="cuda"):
         # the loop of solver.ip.solve: a host read every `sync` iterations
         taken = 0
         while taken < max_iter:
-            for _ in range(min(sync, max_iter - taken)):
+            n = min(sync, max_iter - taken)
+            for _ in range(n):
                 state = iterate(*scaled, *state)
+            count("ip.iterations", n)
             taken += sync
             if not bool(((state[i_it] < max_iter) & ~state[i_done]).any()):
                 break

@@ -34,6 +34,7 @@ from torch.func import grad, jvp, vjp
 
 from .._tree import tree_map, tree_where
 from ..ops.block_tridiag import chol_nan
+from ..tracing import count, span
 
 # a full (unsegmented) solve reads "any lane still running?" once per this
 # many iterations
@@ -364,34 +365,35 @@ def ip_program(cost_fn: Callable, eq_fn: Callable, ineq_fn: Callable, config: IP
 
     def body(st: IPState) -> IPState:
         z, s, lam, y, mu = st.z, st.s, st.lam, st.y, st.mu
-        B, dtype, dev = z.shape[0], z.dtype, z.device
-        ones_b = torch.ones(B, dtype=dtype, device=dev)
-        big = torch.finfo(dtype).max / 4
-        mu_c = mu[:, None]
-        f, vjp_f = vjp(cost_fn, z)
-        E, vjp_e = vjp(eq_fn, z)
-        g_raw, vjp_g = vjp(ineq_fn, z)
-        g_true = g_raw + br
-        g = relax(g_true, mu)
-        grad_f = vjp_f(ones_b)[0]
-        # matrix-free dual residual: r_d = grad_f + Je'y - Jg'lam
-        r_d = grad_f + vjp_e(y)[0] - vjp_g(lam)[0]
+        with span("solver.residuals"):
+            B, dtype, dev = z.shape[0], z.dtype, z.device
+            ones_b = torch.ones(B, dtype=dtype, device=dev)
+            big = torch.finfo(dtype).max / 4
+            mu_c = mu[:, None]
+            f, vjp_f = vjp(cost_fn, z)
+            E, vjp_e = vjp(eq_fn, z)
+            g_raw, vjp_g = vjp(ineq_fn, z)
+            g_true = g_raw + br
+            g = relax(g_true, mu)
+            grad_f = vjp_f(ones_b)[0]
+            # matrix-free dual residual: r_d = grad_f + Je'y - Jg'lam
+            r_d = grad_f + vjp_e(y)[0] - vjp_g(lam)[0]
 
-        kkt_err, _ = _kkt_error_rd(r_d, E, g, s, lam, y, mu)
-        viol = torch.maximum(E.abs().amax(-1), torch.clamp(-g_true, min=0.0).amax(-1))
-        kkt_err0, _ = _kkt_error_rd(r_d, E, g_true, s, lam, y, 0.0)
-        converged = (kkt_err0 <= cfg.tol) & (viol <= cfg.constr_viol_tol)
+            kkt_err, _ = _kkt_error_rd(r_d, E, g, s, lam, y, mu)
+            viol = torch.maximum(E.abs().amax(-1), torch.clamp(-g_true, min=0.0).amax(-1))
+            kkt_err0, _ = _kkt_error_rd(r_d, E, g_true, s, lam, y, 0.0)
+            converged = (kkt_err0 <= cfg.tol) & (viol <= cfg.constr_viol_tol)
 
-        # ---- Newton step on the barrier KKT system (slack elimination)
-        sigma = torch.clamp(lam / s, max=cfg.sigma_max)
-        use_exact = (
-            (viol < cfg.hybrid_viol_switch)
-            & (kkt_err0 < cfg.hybrid_kkt_switch)
-            & (mu <= cfg.hybrid_mu_switch)
-        )
-        r_g = g - s
-        rhs_z = -r_d + vjp_g(mu_c / s - lam - sigma * r_g)[0]
-        rhs_y = -E
+            # ---- Newton step on the barrier KKT system (slack elimination)
+            sigma = torch.clamp(lam / s, max=cfg.sigma_max)
+            use_exact = (
+                (viol < cfg.hybrid_viol_switch)
+                & (kkt_err0 < cfg.hybrid_kkt_switch)
+                & (mu <= cfg.hybrid_mu_switch)
+            )
+            r_g = g - s
+            rhs_z = -r_d + vjp_g(mu_c / s - lam - sigma * r_g)[0]
+            rhs_y = -E
         dz, dy, delta_used, resolve = newton_step_fn(
             z, y, lam, sigma, mu, use_exact, r_d, r_g, rhs_z, rhs_y, st.delta
         )
@@ -415,85 +417,87 @@ def ip_program(cost_fn: Callable, eq_fn: Callable, ineq_fn: Callable, config: IP
 
         # ---- second-order complementarity corrector (Gondzio acceptance)
         for _ in range(cfg.corrector):
-            corr = -(ds * dlam) / s
-            dz_c, dy_c = resolve(rhs_z + vjp_g(corr)[0], rhs_y)
-            ds_c = jvp_ineq(z, dz_c) + r_g
-            dlam_c = mu_c / s - lam + corr - sigma * ds_c
-            alpha_s_c = max_step(s, ds_c, pinned=s_pinned)
-            alpha_lam_c = max_step(lam, dlam_c)
-            better_c = (
-                (torch.minimum(alpha_s_c, alpha_lam_c) >= torch.minimum(alpha_s, alpha_lam))
-                & torch.isfinite(dz_c).all(-1)
-                & torch.isfinite(dlam_c).all(-1)
-            )
-            bc = better_c[:, None]
-            dz = torch.where(bc, dz_c, dz)
-            dy = torch.where(bc, dy_c, dy)
-            ds = torch.where(bc, ds_c, ds)
-            dlam = torch.where(bc, dlam_c, dlam)
-            alpha_s = torch.where(better_c, alpha_s_c, alpha_s)
-            alpha_lam = torch.where(better_c, alpha_lam_c, alpha_lam)
+            with span("solver.corrector"):
+                corr = -(ds * dlam) / s
+                dz_c, dy_c = resolve(rhs_z + vjp_g(corr)[0], rhs_y)
+                ds_c = jvp_ineq(z, dz_c) + r_g
+                dlam_c = mu_c / s - lam + corr - sigma * ds_c
+                alpha_s_c = max_step(s, ds_c, pinned=s_pinned)
+                alpha_lam_c = max_step(lam, dlam_c)
+                better_c = (
+                    (torch.minimum(alpha_s_c, alpha_lam_c) >= torch.minimum(alpha_s, alpha_lam))
+                    & torch.isfinite(dz_c).all(-1)
+                    & torch.isfinite(dlam_c).all(-1)
+                )
+                bc = better_c[:, None]
+                dz = torch.where(bc, dz_c, dz)
+                dy = torch.where(bc, dy_c, dy)
+                ds = torch.where(bc, ds_c, ds)
+                dlam = torch.where(bc, dlam_c, dlam)
+                alpha_s = torch.where(better_c, alpha_s_c, alpha_s)
+                alpha_lam = torch.where(better_c, alpha_lam_c, alpha_lam)
 
         # ---- filter line search (Waechter-Biegler 2006): all candidates of
         # all lanes in one (B*n_linesearch)-row evaluation
-        theta0 = E.abs().sum(-1) + (g - s).abs().sum(-1)
-        phi0 = f - mu * torch.log(s).sum(-1)
-        grad_phi_dz = (grad_f * dz).sum(-1) - mu * (ds / s).sum(-1)
+        with span("solver.line_search"):
+            theta0 = E.abs().sum(-1) + (g - s).abs().sum(-1)
+            phi0 = f - mu * torch.log(s).sum(-1)
+            grad_phi_dz = (grad_f * dz).sum(-1) - mu * (ds / s).sum(-1)
 
-        alphas = alpha_s[:, None] * (0.5 ** torch.arange(nls, dtype=dtype, device=dev))
-        a3 = alphas[..., None]
-        z_t = (z[:, None] + a3 * dz[:, None]).reshape(B * nls, -1)
-        # same floor clip as the accepted step
-        s_t = torch.maximum(s[:, None] + a3 * ds[:, None], cfg.slack_floor * mu[:, None, None])
-        mu_rows = mu.repeat_interleave(nls)
-        E_t = eq_fn(z_t).reshape(B, nls, -1)
-        g_t = relax(ineq_fn(z_t) + br, mu_rows).reshape(B, nls, -1)
-        thetas = E_t.abs().sum(-1) + (g_t - s_t).abs().sum(-1)
-        phis = cost_fn(z_t).reshape(B, nls) - mu[:, None] * torch.log(s_t).sum(-1)
+            alphas = alpha_s[:, None] * (0.5 ** torch.arange(nls, dtype=dtype, device=dev))
+            a3 = alphas[..., None]
+            z_t = (z[:, None] + a3 * dz[:, None]).reshape(B * nls, -1)
+            # same floor clip as the accepted step
+            s_t = torch.maximum(s[:, None] + a3 * ds[:, None], cfg.slack_floor * mu[:, None, None])
+            mu_rows = mu.repeat_interleave(nls)
+            E_t = eq_fn(z_t).reshape(B, nls, -1)
+            g_t = relax(ineq_fn(z_t) + br, mu_rows).reshape(B, nls, -1)
+            thetas = E_t.abs().sum(-1) + (g_t - s_t).abs().sum(-1)
+            phis = cost_fn(z_t).reshape(B, nls) - mu[:, None] * torch.log(s_t).sum(-1)
 
-        f_th = torch.cat([st.filt_theta, theta0[:, None]], 1)
-        f_ph = torch.cat([st.filt_phi, phi0[:, None]], 1)
-        acc_mat = (thetas[..., None] <= (1.0 - cfg.gamma_theta) * f_th[:, None]) | (
-            phis[..., None] <= f_ph[:, None] - cfg.gamma_phi * f_th[:, None]
-        )
-        acc_filter = acc_mat.all(-1) & (thetas <= st.theta_max[:, None])
+            f_th = torch.cat([st.filt_theta, theta0[:, None]], 1)
+            f_ph = torch.cat([st.filt_phi, phi0[:, None]], 1)
+            acc_mat = (thetas[..., None] <= (1.0 - cfg.gamma_theta) * f_th[:, None]) | (
+                phis[..., None] <= f_ph[:, None] - cfg.gamma_phi * f_th[:, None]
+            )
+            acc_filter = acc_mat.all(-1) & (thetas <= st.theta_max[:, None])
 
-        # switching condition: f-type iteration requires Armijo on phi
-        descent = grad_phi_dz < 0
-        switch = descent[:, None] & (
-            alphas * ((-grad_phi_dz) ** cfg.s_phi)[:, None]
-            > cfg.delta_switch * (theta0**cfg.s_theta)[:, None]
-        )
-        armijo_ok = phis <= phi0[:, None] + cfg.eta_phi * alphas * grad_phi_dz[:, None]
-        acceptable = acc_filter & torch.where(switch, armijo_ok, torch.ones_like(armijo_ok))
+            # switching condition: f-type iteration requires Armijo on phi
+            descent = grad_phi_dz < 0
+            switch = descent[:, None] & (
+                alphas * ((-grad_phi_dz) ** cfg.s_phi)[:, None]
+                > cfg.delta_switch * (theta0**cfg.s_theta)[:, None]
+            )
+            armijo_ok = phis <= phi0[:, None] + cfg.eta_phi * alphas * grad_phi_dz[:, None]
+            acceptable = acc_filter & torch.where(switch, armijo_ok, torch.ones_like(armijo_ok))
 
-        step_finite = (
-            torch.isfinite(dz).all(-1)
-            & torch.isfinite(dy).all(-1)
-            & torch.isfinite(ds).all(-1)
-            & torch.isfinite(dlam).all(-1)
-        )
-        acceptable = (acceptable & step_finite[:, None] & torch.isfinite(thetas)
-                      & torch.isfinite(phis))
-        any_ok = acceptable.any(-1)
-        idx_ok = torch.argmax(acceptable.to(torch.int32), -1)  # largest acceptable alpha
-        # fallback (restoration surrogate): most feasibility-reducing candidate
-        idx_fb = torch.argmin(
-            torch.where(torch.isfinite(thetas), thetas, torch.full_like(thetas, float("inf"))), -1
-        )
-        idx = torch.where(any_ok, idx_ok, idx_fb)[:, None]
-        alpha = torch.where(step_finite, alphas.gather(1, idx)[:, 0], torch.zeros_like(alpha_s))
-        # a theta-type acceptance augments the filter
-        theta_type = any_ok & ~(switch.gather(1, idx) & armijo_ok.gather(1, idx))[:, 0]
-        slot = (st.filt_ptr % cfg.filter_size)[:, None]
-        tt = theta_type[:, None]
-        filt_theta_new = torch.where(
-            tt, st.filt_theta.scatter(1, slot, ((1.0 - cfg.gamma_theta) * theta0)[:, None]),
-            st.filt_theta)
-        filt_phi_new = torch.where(
-            tt, st.filt_phi.scatter(1, slot, (phi0 - cfg.gamma_phi * theta0)[:, None]),
-            st.filt_phi)
-        filt_ptr_new = st.filt_ptr + theta_type.to(st.filt_ptr.dtype)
+            step_finite = (
+                torch.isfinite(dz).all(-1)
+                & torch.isfinite(dy).all(-1)
+                & torch.isfinite(ds).all(-1)
+                & torch.isfinite(dlam).all(-1)
+            )
+            acceptable = (acceptable & step_finite[:, None] & torch.isfinite(thetas)
+                          & torch.isfinite(phis))
+            any_ok = acceptable.any(-1)
+            idx_ok = torch.argmax(acceptable.to(torch.int32), -1)  # largest acceptable alpha
+            # fallback (restoration surrogate): most feasibility-reducing candidate
+            idx_fb = torch.argmin(
+                torch.where(torch.isfinite(thetas), thetas, torch.full_like(thetas, float("inf"))), -1
+            )
+            idx = torch.where(any_ok, idx_ok, idx_fb)[:, None]
+            alpha = torch.where(step_finite, alphas.gather(1, idx)[:, 0], torch.zeros_like(alpha_s))
+            # a theta-type acceptance augments the filter
+            theta_type = any_ok & ~(switch.gather(1, idx) & armijo_ok.gather(1, idx))[:, 0]
+            slot = (st.filt_ptr % cfg.filter_size)[:, None]
+            tt = theta_type[:, None]
+            filt_theta_new = torch.where(
+                tt, st.filt_theta.scatter(1, slot, ((1.0 - cfg.gamma_theta) * theta0)[:, None]),
+                st.filt_theta)
+            filt_phi_new = torch.where(
+                tt, st.filt_phi.scatter(1, slot, (phi0 - cfg.gamma_phi * theta0)[:, None]),
+                st.filt_phi)
+            filt_ptr_new = st.filt_ptr + theta_type.to(st.filt_ptr.dtype)
 
         # carry the inertia-correction shift: decay after a good step, bump
         # after a rejected one
@@ -699,7 +703,7 @@ def solve(
         n = min(chunk, n_steps - taken)
         for _ in range(n):
             st = tree_where(running(st), prog.body(st), st)
-        solve.batch_iterations += n
+        count("ip.iterations", n)
         taken += chunk
         if segment_iters is None and not bool(running(st).any()):
             break
@@ -710,11 +714,6 @@ def solve(
         # lane at the iteration cap can never progress again: mark it done
         return result, prog.settle(st, result)
     return result
-
-
-# the iterations run over the whole batch (masked lanes included), counted as
-# ops.pallas_blocks counts kernel launches: a caller reads the difference
-solve.batch_iterations = 0
 
 
 def init_state(cost_fn, eq_fn, ineq_fn, z0, cfg: IPConfig, y0=None, lam0=None, s0=None) -> IPState:

@@ -35,6 +35,7 @@ from ..ops.cr_inverse import cri_factor, cri_solve
 from ..ops.cyclic_reduction import cr_factor, cr_solve
 from ..ops.pallas_blocks import make_qd_inverse
 from ..problems.landing import knot_params
+from ..tracing import span
 
 
 def _layout(problem):
@@ -221,107 +222,110 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         return hessian(lambda vv: stage_cost_s(vv[:nw], vs[:nw], fs, kpr))(v)
 
     def newton_step(z, y, lam, sigma, mu, use_exact, r_d, r_g, rhs_z, rhs_y, delta_last):
-        wb = z_to_blocks(z)
-        c_next = torch.cat([wb[:, 1 : n - 1, nx : nx + 12], wb[:, n - 1 :, nx : nx + 12]], 1)
-        vk = torch.cat([wb[:, : n - 1], c_next], -1).reshape(R, -1)
-        sig_k = sigma[:, : (n - 1) * mgk].reshape(R, mgk)
-        lam_k = lam[:, : (n - 1) * mgk].reshape(R, mgk)
-        y_dyn = y[:, nh : nh + 12 * (n - 1)].reshape(R, 12)
+        with span("newton.derivatives"):
+            wb = z_to_blocks(z)
+            c_next = torch.cat([wb[:, 1 : n - 1, nx : nx + 12], wb[:, n - 1 :, nx : nx + 12]], 1)
+            vk = torch.cat([wb[:, : n - 1], c_next], -1).reshape(R, -1)
+            sig_k = sigma[:, : (n - 1) * mgk].reshape(R, mgk)
+            lam_k = lam[:, : (n - 1) * mgk].reshape(R, mgk)
+            y_dyn = y[:, nh : nh + 12 * (n - 1)].reshape(R, 12)
 
-        # inequality Jacobians + sigma-weighted blocks
-        M = vmap(knot_JM)(vk, vs_f, gs_f, kp, sig_k)
+            # inequality Jacobians + sigma-weighted blocks
+            M = vmap(knot_JM)(vk, vs_f, gs_f, kp, sig_k)
 
-        # Lagrangian stage Hessians.  "hybrid" scales (y, lam), never the
-        # cost, by the per-lane use_exact flag: uf=0 gives the GN Hessian
-        # (the running cost's, zero without one), uf=1 the exact one, from
-        # one sweep.
-        if cfg.hessian_mode == "gn":
-            HM = M + vmap(knot_cost_hess)(vk, vs_f, kp, fs_f) if pcfg.running_cost else M
-        else:
-            if cfg.hessian_mode == "hybrid":
-                uf = use_exact.to(dtype)[:, None].expand(B, n - 1).reshape(R, 1)
-                lam_h, y_h = uf * lam_k, uf * y_dyn
+            # Lagrangian stage Hessians.  "hybrid" scales (y, lam), never the
+            # cost, by the per-lane use_exact flag: uf=0 gives the GN Hessian
+            # (the running cost's, zero without one), uf=1 the exact one, from
+            # one sweep.
+            if cfg.hessian_mode == "gn":
+                HM = M + vmap(knot_cost_hess)(vk, vs_f, kp, fs_f) if pcfg.running_cost else M
             else:
-                lam_h, y_h = lam_k, y_dyn
-            HM = vmap(knot_hess)(vk, vs_f, gs_f, kp, lam_h, y_h, es_f, fs_f) + M
-        HM = HM.reshape(B, n - 1, nw + 12, nw + 12)
+                if cfg.hessian_mode == "hybrid":
+                    uf = use_exact.to(dtype)[:, None].expand(B, n - 1).reshape(R, 1)
+                    lam_h, y_h = uf * lam_k, uf * y_dyn
+                else:
+                    lam_h, y_h = lam_k, y_dyn
+                HM = vmap(knot_hess)(vk, vs_f, gs_f, kp, lam_h, y_h, es_f, fs_f) + M
+            HM = HM.reshape(B, n - 1, nw + 12, nw + 12)
 
-        # defect Jacobians wrt w (scaled)
-        Dk = vmap(jacfwd(stage_defect_s))(
-            wb[:, : n - 1].reshape(R, nw), zs_b[:, : n - 1].reshape(R, nw), es_f, kp
-        ).reshape(B, n - 1, 12, nw)
+            # defect Jacobians wrt w (scaled)
+            Dk = vmap(jacfwd(stage_defect_s))(
+                wb[:, : n - 1].reshape(R, nw), zs_b[:, : n - 1].reshape(R, nw), es_f, kp
+            ).reshape(B, n - 1, 12, nw)
 
-        Jh = vmap(jacfwd(head_eq_s))(wb[:, 0], zs_b[:, 0], esc_head, head_ref)  # (B, nh, nw)
+            Jh = vmap(jacfwd(head_eq_s))(wb[:, 0], zs_b[:, 0], esc_head, head_ref)  # (B, nh, nw)
 
-        xl_t = wb[:, n - 1, :nx]
-        zl = zs_b[:, n - 1, :nx]
-        Ht = vmap(hessian(term_cost_s))(xl_t, zl, f_scale, theta.qn, theta.x_ref[:, -1])
-        if mg_term:
-            Jt = vmap(jacfwd(term_ineq_s))(xl_t, zl, gsc_t, bounds)  # (B, 24, 12)
-            sig_t = sigma[:, (n - 1) * mgk :]
-            Ht = Ht + Jt.transpose(1, 2) @ (sig_t[..., None] * Jt)
+            xl_t = wb[:, n - 1, :nx]
+            zl = zs_b[:, n - 1, :nx]
+            Ht = vmap(hessian(term_cost_s))(xl_t, zl, f_scale, theta.qn, theta.x_ref[:, -1])
+            if mg_term:
+                Jt = vmap(jacfwd(term_ineq_s))(xl_t, zl, gsc_t, bounds)  # (B, 24, 12)
+                sig_t = sigma[:, (n - 1) * mgk :]
+                Ht = Ht + Jt.transpose(1, 2) @ (sig_t[..., None] * Jt)
 
-        # x_{k+1} coefficient of the scaled defect rows: diag(esc * zscale)
-        xnext_coef = esc_dyn * zs_b[:, 1:, :nx]  # (B, n-1, 12)
+        with span("newton.assembly"):
+            # x_{k+1} coefficient of the scaled defect rows: diag(esc * zscale)
+            xnext_coef = esc_dyn * zs_b[:, 1:, :nx]  # (B, n-1, 12)
 
-        # ---- assemble block-tridiagonal A, C -----------------------------
-        A = z.new_zeros((B, nb, bs, bs))
-        C = z.new_zeros((B, nb - 1, bs, bs))
-        A[:, : n - 1, :nw, :nw] += HM[:, :, :nw, :nw]
-        A[:, 1:n, nx : nx + 12, nx : nx + 12] += HM[:, :, nw:, nw:]
-        C[:, : n - 1, nx : nx + 12, :nw] += HM[:, :, nw:, :nw]
-        A[:, : n - 1, :nw, nw : nw + 12] += Dk.transpose(-1, -2)
-        A[:, : n - 1, nw : nw + 12, :nw] += Dk
-        C[:, : n - 1, :12, nw : nw + 12] += torch.diag_embed(xnext_coef)
-        if nsch:
-            # scheduled ground/no-slip multiplier slots (block k) and the
-            # no-slip c_{k+1} coupling (diagonal into block k+1's c columns)
-            A[:, : n - 1, :nw, nw + 12 : nw + 16] += Jg_w.transpose(-1, -2)
-            A[:, : n - 1, nw + 12 : nw + 16, :nw] += Jg_w
-            A[:, : n - 1, :nw, nw + 16 : nw + 28] += Jns_w.transpose(-1, -2)
-            A[:, : n - 1, nw + 16 : nw + 28, :nw] += Jns_w
-            C[:, :, nx + r12, nw + 16 + r12] += Jns_next
-        A[:, 0, :nw, off_hd : off_hd + nh] += Jh.transpose(-1, -2)
-        A[:, 0, off_hd : off_hd + nh, :nw] += Jh
-        A[:, n - 1, :nx, :nx] += Ht
-        A[:, n - 1, nx:nw, nx:nw] += torch.eye(nw - nx, dtype=dtype, device=dev)
-        delta_c = torch.clamp(1e-6 * delta_last, min=cfg.delta_c)
-        A[:, :, nw:, nw:] -= delta_c[:, None, None, None] * eye_nd
+            # ---- assemble block-tridiagonal A, C -----------------------------
+            A = z.new_zeros((B, nb, bs, bs))
+            C = z.new_zeros((B, nb - 1, bs, bs))
+            A[:, : n - 1, :nw, :nw] += HM[:, :, :nw, :nw]
+            A[:, 1:n, nx : nx + 12, nx : nx + 12] += HM[:, :, nw:, nw:]
+            C[:, : n - 1, nx : nx + 12, :nw] += HM[:, :, nw:, :nw]
+            A[:, : n - 1, :nw, nw : nw + 12] += Dk.transpose(-1, -2)
+            A[:, : n - 1, nw : nw + 12, :nw] += Dk
+            C[:, : n - 1, :12, nw : nw + 12] += torch.diag_embed(xnext_coef)
+            if nsch:
+                # scheduled ground/no-slip multiplier slots (block k) and the
+                # no-slip c_{k+1} coupling (diagonal into block k+1's c columns)
+                A[:, : n - 1, :nw, nw + 12 : nw + 16] += Jg_w.transpose(-1, -2)
+                A[:, : n - 1, nw + 12 : nw + 16, :nw] += Jg_w
+                A[:, : n - 1, :nw, nw + 16 : nw + 28] += Jns_w.transpose(-1, -2)
+                A[:, : n - 1, nw + 16 : nw + 28, :nw] += Jns_w
+                C[:, :, nx + r12, nw + 16 + r12] += Jns_next
+            A[:, 0, :nw, off_hd : off_hd + nh] += Jh.transpose(-1, -2)
+            A[:, 0, off_hd : off_hd + nh, :nw] += Jh
+            A[:, n - 1, :nx, :nx] += Ht
+            A[:, n - 1, nx:nw, nx:nw] += torch.eye(nw - nx, dtype=dtype, device=dev)
+            delta_c = torch.clamp(1e-6 * delta_last, min=cfg.delta_c)
+            A[:, :, nw:, nw:] -= delta_c[:, None, None, None] * eye_nd
 
-        # ---- regularization ladder + Jacobi equilibration ----------------
-        dw = torch.diagonal(A[:, :, :nw, :nw], dim1=-2, dim2=-1)  # (B, nb, nw)
-        base = 1e-2 * (dw * valid_f).mean((1, 2)) + 1e-12
-        shift = dw.abs() + base[:, None, None]
-        scale_w = 1.0 / torch.sqrt(shift)
-        # multiplier-row equilibration (incl. the x_{k+1} coupling in C)
-        dyn_norm2 = (Dk * Dk).sum(-1) + xnext_coef * xnext_coef
-        nu_scale = z.new_ones((B, nb, nd))
-        nu_scale[:, : n - 1, :12] = 1.0 / torch.sqrt(dyn_norm2 + 1e-6)
-        if nsch:
-            # scheduled rows have 1 (ground) / 2 (no-slip) diagonal nonzeros
-            nu_scale[:, : n - 1, 12:16] = 1.0 / torch.sqrt(Jg_coef * Jg_coef + 1e-6)
-            nu_scale[:, : n - 1, 16:28] = 1.0 / torch.sqrt(
-                Jns_own * Jns_own + Jns_next * Jns_next + 1e-6)
-        head_norm2 = (Jh * Jh).sum(-1)
-        nu_scale[:, 0, 12 + nsch : 12 + nsch + nh] = 1.0 / torch.sqrt(head_norm2 + 1e-6)
-        d_block = torch.cat([scale_w, nu_scale], -1)  # (B, nb, bs)
+            # ---- regularization ladder + Jacobi equilibration ----------------
+            dw = torch.diagonal(A[:, :, :nw, :nw], dim1=-2, dim2=-1)  # (B, nb, nw)
+            base = 1e-2 * (dw * valid_f).mean((1, 2)) + 1e-12
+            shift = dw.abs() + base[:, None, None]
+            scale_w = 1.0 / torch.sqrt(shift)
+            # multiplier-row equilibration (incl. the x_{k+1} coupling in C)
+            dyn_norm2 = (Dk * Dk).sum(-1) + xnext_coef * xnext_coef
+            nu_scale = z.new_ones((B, nb, nd))
+            nu_scale[:, : n - 1, :12] = 1.0 / torch.sqrt(dyn_norm2 + 1e-6)
+            if nsch:
+                # scheduled rows have 1 (ground) / 2 (no-slip) diagonal nonzeros
+                nu_scale[:, : n - 1, 12:16] = 1.0 / torch.sqrt(Jg_coef * Jg_coef + 1e-6)
+                nu_scale[:, : n - 1, 16:28] = 1.0 / torch.sqrt(
+                    Jns_own * Jns_own + Jns_next * Jns_next + 1e-6)
+            head_norm2 = (Jh * Jh).sum(-1)
+            nu_scale[:, 0, 12 + nsch : 12 + nsch + nh] = 1.0 / torch.sqrt(head_norm2 + 1e-6)
+            d_block = torch.cat([scale_w, nu_scale], -1)  # (B, nb, bs)
 
-        deltas = torch.stack(
-            [torch.full_like(delta_last, cfg.delta_w) if s == 0.0 else s * delta_last
-             for s in ladder], 1
-        )  # (B, L)
-        As = A[:, None].repeat(1, len(ladder), 1, 1, 1)
-        As[..., ar, ar] += deltas[:, :, None, None] * shift[:, None]
-        As = As * d_block[:, None, :, :, None] * d_block[:, None, :, None, :]
-        Cs = C * d_block[:, 1:, :, None] * d_block[:, :-1, None, :]
-        facs = factor_fn(As, Cs[:, None].expand(-1, len(ladder), -1, -1, -1))
-        oks = facs.ok  # (B, L)
-        pick = torch.where(oks.any(1), torch.argmax(oks.to(torch.int32), 1),
-                           torch.full_like(oks[:, 0], len(ladder) - 1, dtype=torch.int64))
-        lanes = torch.arange(B, device=dev)
-        fac = facs.select(lambda t: t[lanes, pick])
-        delta_used = deltas[lanes, pick]
-        As_u = As[lanes, pick]
+            deltas = torch.stack(
+                [torch.full_like(delta_last, cfg.delta_w) if s == 0.0 else s * delta_last
+                 for s in ladder], 1
+            )  # (B, L)
+            As = A[:, None].repeat(1, len(ladder), 1, 1, 1)
+            As[..., ar, ar] += deltas[:, :, None, None] * shift[:, None]
+            As = As * d_block[:, None, :, :, None] * d_block[:, None, :, None, :]
+            Cs = C * d_block[:, 1:, :, None] * d_block[:, :-1, None, :]
+        with span("newton.factor"):
+            facs = factor_fn(As, Cs[:, None].expand(-1, len(ladder), -1, -1, -1))
+            oks = facs.ok  # (B, L)
+            pick = torch.where(oks.any(1), torch.argmax(oks.to(torch.int32), 1),
+                               torch.full_like(oks[:, 0], len(ladder) - 1, dtype=torch.int64))
+            lanes = torch.arange(B, device=dev)
+            fac = facs.select(lambda t: t[lanes, pick])
+            delta_used = deltas[lanes, pick]
+            As_u = As[lanes, pick]
 
         def K_mul(xb):
             out = (As_u @ xb[..., None])[..., 0]
@@ -332,27 +336,28 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
         # rhs in block layout; resolve() reuses the factorization for the
         # corrector re-solves
         def resolve(rhs_z_v, rhs_y_v):
-            b = z.new_zeros((B, nb, bs))
-            b[:, :, :nw] = z_to_blocks(rhs_z_v)
-            b[:, : n - 1, nw : nw + 12] = rhs_y_v[:, nh : nh + 12 * (n - 1)].reshape(B, n - 1, 12)
-            if nsch:
-                b[:, : n - 1, nw + 12 : nw + 16] = rhs_y_v[
-                    :, off_gd : off_gd + 4 * (n - 1)].reshape(B, n - 1, 4)
-                b[:, : n - 1, nw + 16 : nw + 28] = rhs_y_v[
-                    :, off_gd + 4 * (n - 1) :].reshape(B, n - 1, 12)
-            b[:, 0, off_hd : off_hd + nh] = rhs_y_v[:, :nh]
-            b_s = b * d_block
-            x_s = solve_fn(fac, b_s)
-            for _ in range(cfg.refine_steps):
-                # blockwise iterative refinement
-                x_s = x_s + solve_fn(fac, b_s - K_mul(x_s))
-            x = x_s * d_block
-            dz = blocks_to_z(x[..., :nw])
-            dy_parts = [x[:, 0, off_hd : off_hd + nh], x[:, : n - 1, nw : nw + 12].reshape(B, -1)]
-            if nsch:
-                dy_parts.append(x[:, : n - 1, nw + 12 : nw + 16].reshape(B, -1))
-                dy_parts.append(x[:, : n - 1, nw + 16 : nw + 28].reshape(B, -1))
-            return dz, torch.cat(dy_parts, -1)
+            with span("newton.solve"):
+                b = z.new_zeros((B, nb, bs))
+                b[:, :, :nw] = z_to_blocks(rhs_z_v)
+                b[:, : n - 1, nw : nw + 12] = rhs_y_v[:, nh : nh + 12 * (n - 1)].reshape(B, n - 1, 12)
+                if nsch:
+                    b[:, : n - 1, nw + 12 : nw + 16] = rhs_y_v[
+                        :, off_gd : off_gd + 4 * (n - 1)].reshape(B, n - 1, 4)
+                    b[:, : n - 1, nw + 16 : nw + 28] = rhs_y_v[
+                        :, off_gd + 4 * (n - 1) :].reshape(B, n - 1, 12)
+                b[:, 0, off_hd : off_hd + nh] = rhs_y_v[:, :nh]
+                b_s = b * d_block
+                x_s = solve_fn(fac, b_s)
+                for _ in range(cfg.refine_steps):
+                    # blockwise iterative refinement
+                    x_s = x_s + solve_fn(fac, b_s - K_mul(x_s))
+                x = x_s * d_block
+                dz = blocks_to_z(x[..., :nw])
+                dy_parts = [x[:, 0, off_hd : off_hd + nh], x[:, : n - 1, nw : nw + 12].reshape(B, -1)]
+                if nsch:
+                    dy_parts.append(x[:, : n - 1, nw + 12 : nw + 16].reshape(B, -1))
+                    dy_parts.append(x[:, : n - 1, nw + 16 : nw + 28].reshape(B, -1))
+                return dz, torch.cat(dy_parts, -1)
 
         dz, dy = resolve(rhs_z, rhs_y)
         return dz, dy, delta_used, resolve

@@ -74,10 +74,10 @@ def sampled_ics(B: int, seed: int = 0, sampler: str = "legacy"):
 def counts():
     """(qd_inverse launches, IP batch iterations) so far in this process;
     a run's counts are the differences around it."""
-    from ..ops.pallas_blocks import qd_inverse
-    from ..solver.ip import solve
+    from ..tracing import counters
 
-    return qd_inverse.launches, solve.batch_iterations
+    c = counters()
+    return c["qd_inverse.launches"], c["ip.iterations"]
 
 
 def counted(before) -> dict:

@@ -25,8 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+from landing_controller_tpu_torch import tracing  # noqa: E402
 from landing_controller_tpu_torch.api import DEFAULT_NN_PATH  # noqa: E402
-from landing_controller_tpu_torch.ops.pallas_blocks import qd_inverse  # noqa: E402
 from landing_controller_tpu_torch.tools.train_warmstart import factory_solvers  # noqa: E402
 from landing_controller_tpu_torch.tools.warmstart_compare import compare_regimes  # noqa: E402
 from landing_controller_tpu_torch.warmstart.nn import load_warmstart  # noqa: E402
@@ -50,13 +50,13 @@ def main() -> int:
     T, B = args.trials, args.batch
     mlp, stats = load_warmstart(DEFAULT_NN_PATH, device="cuda")
     srbm, kino = factory_solvers("cuda", args.max_iter)
-    qd_inverse.launches = 0
+    tracing.reset()
     t0 = time.time()
     res = compare_regimes(kino, srbm, mlp, stats, T, B, 999)
     wall = time.time() - t0
     print(f"[warmstart] committed network {os.path.basename(DEFAULT_NN_PATH)}, B={B}, {T} trial(s) "
           f"after one untimed pass, max_iter {args.max_iter}, drops of seed 999, on {smi}: wall_s "
-          f"{wall:.2f}, qd_inverse launches {qd_inverse.launches}")
+          f"{wall:.2f}, qd_inverse launches {tracing.counters()['qd_inverse.launches']}")
     for k, v in res["t"].items():
         print(f"[warmstart] time {k}: mean {v.mean():.4f} s, min {v.min():.4f} s per batch of {B}")
     with open(JAX_RECORD) as f:

@@ -18,6 +18,7 @@ import torch
 
 from landing_controller_tpu.ops.pallas_blocks import chol_inverse as j_chol_inverse
 from landing_controller_tpu_torch.ops import _build, chol_inverse, chol_inverse_ref
+from landing_controller_tpu_torch.tracing import counters
 
 # the port's ops are small: one intra-op thread per test process keeps
 # parallel test workers from oversubscribing the cores
@@ -95,9 +96,9 @@ def test_pivot_clamp_pallas_overflows_plain_inverts():
 
 
 def test_chol_inverse_rejects_other_devices_and_counts_no_cpu_launch():
-    before = chol_inverse.launches
+    before = counters()["chol_inverse.launches"]
     chol_inverse(torch.eye(3)[None])
-    assert chol_inverse.launches == before  # the plain version is not a launch
+    assert counters()["chol_inverse.launches"] == before  # the plain version is not a launch
     with pytest.raises(ValueError):
         chol_inverse(torch.zeros((1, 8, 8), device="meta"))
 

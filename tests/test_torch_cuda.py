@@ -16,8 +16,13 @@ import torch
 from landing_controller_tpu_torch.ops import cri_factor, cri_solve, make_qd_inverse, pallas_blocks
 from landing_controller_tpu_torch.ops.pallas_blocks import (chol_inverse, chol_inverse_ref, qd_inverse,
                                                            qd_inverse_ref)
+from landing_controller_tpu_torch.tracing import counters
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(op):
+    return counters()[f"{op}.launches"]
 
 
 @pytest.fixture
@@ -94,14 +99,14 @@ def test_kernel_follows_pallas_pivot_clamp(dev):
 
 def test_kernel_counts_launches_and_checks_inputs(dev):
     S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(0), 3, 6, 4), device=dev)
-    before = qd_inverse.launches
+    before = launches("qd_inverse")
     qd_inverse(S, 6, 4)
     qd_inverse(S.cpu(), 6, 4)  # the plain version: not a launch
-    assert qd_inverse.launches == before + 1
+    assert launches("qd_inverse") == before + 1
     # f64 goes through the kernel's double instance, which agrees with the
     # plain version in f64; any other type raises
     out64, ok64 = qd_inverse(S.double(), 6, 4)
-    assert qd_inverse.launches == before + 2 and out64.dtype == torch.float64
+    assert launches("qd_inverse") == before + 2 and out64.dtype == torch.float64
     ref64, ok_ref64 = qd_inverse_ref(S.double(), 6, 4)
     assert torch.equal(ok64, ok_ref64) and bool(ok64.all())
     torch.testing.assert_close(out64, ref64, rtol=1e-10, atol=1e-10)
@@ -250,12 +255,12 @@ def test_chol_kernel_follows_pallas_pivot_clamp(dev):
 
 def test_chol_kernel_counts_launches_and_checks_inputs(dev):
     A = torch.as_tensor(_random_spd(np.random.default_rng(0), 3, 6), device=dev)
-    before = chol_inverse.launches
+    before = launches("chol_inverse")
     chol_inverse(A)
     chol_inverse(A.cpu())  # the plain version: not a launch
-    assert chol_inverse.launches == before + 1
+    assert launches("chol_inverse") == before + 1
     out64, ok64 = chol_inverse(A.double())  # the double instance
-    assert chol_inverse.launches == before + 2 and bool(ok64.all())
+    assert launches("chol_inverse") == before + 2 and bool(ok64.all())
     torch.testing.assert_close(out64, chol_inverse_ref(A.double())[0], rtol=1e-10, atol=1e-10)
     with pytest.raises(TypeError):
         chol_inverse(A.half())
@@ -339,9 +344,9 @@ def test_f64_solver_goes_through_the_kernel(dev):
     from landing_controller_tpu_torch import LandingSolver
 
     q0, qd0 = [0.0, 0.0, 0.45, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0, -0.5]
-    before = qd_inverse.launches
+    before = launches("qd_inverse")
     s_gpu = LandingSolver("srbm_lcp", dtype=torch.float64, device="cuda").solve(q0, qd0)
-    assert qd_inverse.launches > before
+    assert launches("qd_inverse") > before
     s_cpu = LandingSolver("srbm_lcp", dtype=torch.float64, device="cpu").solve(q0, qd0)
     assert bool(s_gpu.converged) and bool(s_cpu.converged)
     assert abs(float(s_gpu.cost) - float(s_cpu.cost)) <= 1e-6 * abs(float(s_cpu.cost))
@@ -356,16 +361,16 @@ def test_custom_ops_launch_the_kernels_and_trace(dev):
     S = torch.as_tensor(_random_qd_blocks(np.random.default_rng(1), 8, 6, 4), device=dev)
     A = S[:, :6, :6].contiguous()
     for op, fn, args in (("qd_inverse", qd_inverse, (S, 6, 4)), ("chol_inverse", chol_inverse, (A,))):
-        before = fn.launches
+        before = launches(op)
         out, ok = getattr(torch.ops.landing_controller_tpu_torch, op)(*args)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1 and out.is_contiguous() and bool(ok.all())
+        assert launches(op) == before + 1 and out.is_contiguous() and bool(ok.all())
         torch.library.opcheck(getattr(torch.ops.landing_controller_tpu_torch, op).default, args,
                               test_utils=("test_schema", "test_faketensor"))
-        before = fn.launches
+        before = launches(op)
         gm = make_fx(lambda *a: fn(*a), tracing_mode="fake")(*args)
         assert f"landing_controller_tpu_torch.{op}.default" in [str(n.target) for n in gm.graph.nodes]
-        assert fn.launches == before
+        assert launches(op) == before
     with pytest.raises(TypeError):
         torch.ops.landing_controller_tpu_torch.qd_inverse(S.half(), 6, 4)
     with pytest.raises(ValueError):

@@ -14,6 +14,7 @@ import torch
 from landing_controller_tpu.ops.pallas_blocks import qd_inverse as j_qd_inverse
 from landing_controller_tpu.ops.pallas_blocks import qd_inverse_ref as j_qd_inverse_ref
 from landing_controller_tpu_torch.ops import make_qd_inverse, qd_inverse
+from landing_controller_tpu_torch.tracing import counters
 
 # the port's ops are small: one intra-op thread per test process keeps
 # parallel test workers from oversubscribing the cores
@@ -141,10 +142,10 @@ def test_kernels_are_custom_ops_with_fake_implementations(op):
     else:
         fn, args = chol_inverse, (S[:, :5, :5].contiguous(),)
     torch.library.opcheck(getattr(torch.ops.landing_controller_tpu_torch, op).default, args)
-    launches = fn.launches
+    launches = counters()[f"{op}.launches"]
     gm = make_fx(lambda *a: fn(*a), tracing_mode="fake")(*args)
     calls = [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
     assert calls.count(f"landing_controller_tpu_torch.{op}.default") == 1
     out, ok = getattr(torch.ops.landing_controller_tpu_torch, op)(*args)
     assert out.shape == args[0].shape and ok.shape == (4,) and ok.dtype == torch.bool
-    assert fn.launches == launches
+    assert counters()[f"{op}.launches"] == launches

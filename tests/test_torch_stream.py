@@ -1,7 +1,8 @@
 """The port's streaming solver and segmented solves (CPU, port only).
 
 - an accounting run: batch 2, 4 scenarios, n_knots 13, with a retry chain;
-  every scenario finishes and the stats dict has the JAX StreamingSolver's keys;
+  every scenario finishes and the stats dict has the JAX StreamingSolver's
+  keys and ``n_retried``;
 - the segmented solve is a pure re-chunking of the monolithic one;
 - constructor validation of the attempt deadlines; the default sampler;
 - ``run(progress_cb=...)`` at B=2 over a pool of 5 (lanes refilled): the JAX
@@ -54,8 +55,9 @@ def test_streaming_accounting():
     ss = StreamingSolver(_solver(retry_guess="reference"), batch=2, segment=15,
                          sampler=_sampler, attempt_iters=(30, 15), collect_z=True)
     stats = ss.run(4)
-    assert set(stats) == STATS_KEYS | {"z"}
-    assert stats["n_finished"] == 4
+    # the JAX StreamingSolver's keys, and the port's count of retried drops
+    assert set(stats) == STATS_KEYS | {"z", "n_retried"}
+    assert stats["n_finished"] == 4 and 0 <= stats["n_retried"] <= 4
     assert stats["n_converged"] == int(stats["converged_mask"].sum())
     assert stats["ics"].shape == (4, 12) and stats["viol"].shape == (4,)
     assert np.isfinite(stats["viol"]).all() and np.isfinite(stats["z"]).all()
