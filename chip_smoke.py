@@ -17,7 +17,10 @@ Phases (any failure exits nonzero, before the result line):
 4. the srbm_lcp path: the streaming solve of the repo's benchmark settings
    (B=64, 25-iteration segments, deadlines (100, 150), ballistic guess with
    an NN retry, production dt schedule) over one pool of 64 scenarios, with
-   the kernel launch counts of that run;
+   the kernel launch counts of that run, its iterations run eagerly (the
+   block capture of phase 5 sees every call); then the same pool on the
+   live step, whose iterations replay one captured CUDA graph, held to the
+   eager run (finished drops, converged set, iterations, z);
 5. checks of its output: kernel parity on the real KKT blocks captured from
    several block-inverse calls of the run, feasibility of the harvested
    solutions, and one gentle drop solved on the card and on the CPU (plain
@@ -1947,6 +1950,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[srbm_lcp] warm-up {time.time() - t0:.1f} s")
     ss = make_stream(0)
+    # iterations run eagerly here, so that the patched block inverse sees
+    # every call (a replayed CUDA graph runs no Python)
+    ss._step_cache[N_SCENARIOS] = ss._compose(
+        ss._iterate, lambda pool, carry: ss._harvest(pool, carry, N_SCENARIOS))
     cap_srbm = {}
     restore, sizes_srbm = capture_block_inverse_calls(structured, cap_srbm, CAPTURE_EVERY)
     launches = {}
@@ -1975,6 +1982,26 @@ def main() -> int:
     if stats["convergence_rate"] < CONVERGENCE_FLOOR:
         raise AssertionError(f"convergence_rate {stats['convergence_rate']:.3f} < "
                              f"{CONVERGENCE_FLOOR}")
+    # the same pool on the live step: one captured CUDA graph, replayed
+    tracing.reset()
+    t0 = time.time()
+    g_stats = make_stream(0).run(N_SCENARIOS)
+    torch.cuda.synchronize()
+    t_graph = time.time() - t0
+    c = tracing.counters()
+    dz = float(np.abs(g_stats["z"] - stats["z"]).max() / max(np.abs(stats["z"]).max(), 1e-30))
+    log(f"[srbm_lcp] the same pool on the live step (CUDA graph): wall_s {g_stats['wall_s']:.2f} "
+        f"(with pool set-up and capture {t_graph:.2f}), converged solves/s "
+        f"{g_stats['converged_per_sec']:.3f}; captures {c['stream.graph_captures']}, replays "
+        f"{c['stream.graph_replays']}, eager iterations {c['stream.eager_iterations']}, qd_inverse "
+        f"launches {c['qd_inverse.launches']} (eager run {launches['srbm_lcp']}); z against the "
+        f"eager run max rel {dz:.2e}")
+    if not (c["stream.graph_captures"] == 1 and c["stream.eager_iterations"] == 0
+            and c["qd_inverse.launches"] == launches["srbm_lcp"]
+            and np.array_equal(g_stats["ics"], stats["ics"])
+            and np.array_equal(g_stats["converged_mask"], stats["converged_mask"])
+            and g_stats["iters_p50"] == stats["iters_p50"] and dz <= 1e-5):
+        raise AssertionError("the stream's graph replays disagree with its eager iterations")
 
     # ---- 5. checks of the srbm_lcp output
     # (a) kernel vs plain on the real KKT blocks of the path

@@ -7,6 +7,7 @@ import subprocess
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 def resolve_device(device) -> torch.device:
@@ -31,13 +32,22 @@ def card_line(device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cached_tensors(cache: dict, arrays: tuple, dtype, device, build=tuple):
-    """``build`` of the numpy ``arrays`` as tensors of ``dtype`` on
-    ``device``, made at the first call for that pair and kept in ``cache``,
-    so that a batched call copies no constant to the device."""
-    key = (dtype, torch.device(device))
-    out = cache.get(key)
+_CONSTANTS: dict = {}
+
+
+def constant(values, dtype, device) -> torch.Tensor:
+    """The numbers ``values`` (a number, nested sequences or an array) as a
+    tensor of ``dtype`` on ``device``, made at the first call for those
+    numbers, that dtype and that device and kept: a call on the solver's
+    path copies nothing to the device and waits for nothing, as a CUDA
+    graph's capture requires.  The tensor is shared, so nothing writes into
+    it; it is made outside any tracing mode, so a trace takes it as a
+    constant."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, device)
+    out = _CONSTANTS.get(key)
     if out is None:
-        out = cache[key] = build(torch.as_tensor(np.asarray(a), dtype=dtype, device=key[1])
-                                 for a in arrays)
+        with _disable_current_modes():
+            out = _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
     return out

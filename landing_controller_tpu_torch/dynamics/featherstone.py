@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from .._device import cached_tensors, resolve_device
+from .._device import constant, resolve_device
 from .rotations import rpy_to_rot_zyx, skew
 from .spatial import crf, crm, jcalc, motion_subspace, plux_inv, spatial_inertia
 
@@ -411,11 +411,10 @@ class RotorModel:
         self.gr = np.asarray(gr, np.float64)
         self.inertia = np.asarray(inertia, np.float64)  # (nr, 6, 6)
         self.x_mu = np.asarray(x_mu, np.float64)  # (nr, 6, 6)
-        self._tensors = {}
 
     def tensors(self, dtype, device):
         """(inertia, x_mu) as tensors of dtype on device, made once per pair."""
-        return cached_tensors(self._tensors, (self.inertia, self.x_mu), dtype, device)
+        return constant(self.inertia, dtype, device), constant(self.x_mu, dtype, device)
 
 
 def quad3d_rotor_model(model, robot_params, rotor_inertia_axial, rotor_mass=0.0):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import constant
 from .rotations import rpy_to_rot_xyz, rpy_to_rot_zyx
 
 # Per-leg ab/ad y sign [FR, FL, HR, HL] (get_foot_jacobians_mc.m:3).
@@ -39,7 +40,7 @@ SIDE_SIGN_XYZ = np.array(
 def _trig(jpos):
     """(..., 12) -> per-leg sines/cosines (..., 4) and the side signs."""
     q = jpos.reshape(jpos.shape[:-1] + (4, 3))
-    side = torch.as_tensor(SIDE_SIGN, dtype=jpos.dtype, device=jpos.device)
+    side = constant(SIDE_SIGN, jpos.dtype, jpos.device)
     s, c = torch.sin(q), torch.cos(q)
     s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2]
     c1, c2, c3 = c[..., 0], c[..., 1], c[..., 2]
@@ -76,8 +77,7 @@ def foot_positions_world(params, q_base, jpos):
     (landing_optimization.m:184).
     """
     R = rpy_to_rot_xyz(q_base[..., 3:6])
-    abad = torch.as_tensor(SIDE_SIGN_XYZ * np.asarray(params.abad_location),
-                           dtype=jpos.dtype, device=jpos.device)
+    abad = constant(SIDE_SIGN_XYZ * np.asarray(params.abad_location), jpos.dtype, jpos.device)
     p = abad + foot_positions_hip(params, jpos)  # (..., 4, 3)
     # R @ p per leg, written out as a broadcast sum
     return q_base[..., None, :3] + (p[..., None, :] * R[..., None, :, :]).sum(-1)
@@ -139,8 +139,7 @@ def _base_rotation(fb_state, convention: str):
 
 def _hip_frame_targets(params, fb_state, p_feet, R_b2w):
     """R_w2b (p - base) - hip per leg, (..., 4, 3)."""
-    hip_rel = torch.as_tensor(SIDE_SIGN_XYZ * np.asarray(params.abad_location),
-                              dtype=p_feet.dtype, device=p_feet.device)
+    hip_rel = constant(SIDE_SIGN_XYZ * np.asarray(params.abad_location), p_feet.dtype, p_feet.device)
     p = p_feet.reshape(p_feet.shape[:-1] + (4, 3)) - fb_state[..., None, :3]
     # (p - base) @ R_b2w per leg, written out as a broadcast sum
     return (p[..., :, None] * R_b2w[..., None, :, :]).sum(-2) - hip_rel
@@ -154,7 +153,7 @@ def inverse_kinematics(params, fb_state, p_feet, convention: str = "zyx"):
     production convention of :func:`foot_positions_world`."""
     l1, l2, l3 = params.l1, params.l2, params.l3
     p_rel = _hip_frame_targets(params, fb_state, p_feet, _base_rotation(fb_state, convention))
-    l1s = torch.as_tensor(SIDE_SIGN_XYZ[:, 1], dtype=p_feet.dtype, device=p_feet.device) * l1
+    l1s = constant(SIDE_SIGN_XYZ[:, 1], p_feet.dtype, p_feet.device) * l1
     px, py, pz = p_rel[..., 0], p_rel[..., 1], p_rel[..., 2]
     th1 = torch.atan2(pz, py) + torch.atan2(
         torch.sqrt(torch.clamp(py**2 + pz**2 - l1s**2, min=0.0)), l1s.expand_as(py))

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import cached_tensors
+from .._device import constant
 from .rotations import rx, ry, rz, skew, unskew
 
 # Static joint-type codes (spatial_v2/dynamics/jcalc.m:19-40)
@@ -121,13 +121,10 @@ def flip_spatial_inertia_y(I6):
     return spatial_inertia(mass, com @ R, R @ I3 @ R)
 
 
-_S_CACHE: dict = {}
-
-
 def motion_subspace(jtype_code: int, dtype, device):
     """S (6,) of a joint code as a tensor, a row of _S_TABLE made once per
     (dtype, device) (no host-to-device copy per call)."""
-    return cached_tensors(_S_CACHE, (_S_TABLE,), dtype, device)[0][jtype_code]
+    return constant(_S_TABLE, dtype, device)[jtype_code]
 
 
 def jcalc(jtype_code: int, q):

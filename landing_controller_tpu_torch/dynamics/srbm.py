@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import constant
 from .rotations import binv, rpy_to_rot_xyz, rpy_to_rot_zyx
 
 
@@ -50,7 +51,7 @@ def _xdot(x, u, mass, ib_diag, ib_inv_diag, rot):
     r, rpy, omega, v = split_state(x)
     c, f = split_control(u)
     R_b2w = rot(rpy)
-    g = torch.tensor([0.0, 0.0, -9.81], dtype=x.dtype, device=x.device)
+    g = constant([0.0, 0.0, -9.81], x.dtype, x.device)
     v_dot = f.sum(-2) / mass[..., None] + g
     # world-frame contact torque about the CoM
     tau_world = cross(c - r[..., None, :], f).sum(-2)

@@ -20,7 +20,7 @@ import typing
 import numpy as np
 import torch
 
-from .._device import cached_tensors
+from .._device import constant
 from .params import RobotParams, get_robot_params
 
 # numpy mirrors of the spatial helpers (model construction is host-side, static)
@@ -116,8 +116,6 @@ class RobotModel:
     rm: np.ndarray  # (3,)
     tau_max: np.ndarray  # (12,) joint torque limits
     battery_v: float
-    _tensors: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
-                                       compare=False)
 
     @property
     def tau_max_leg(self) -> np.ndarray:
@@ -129,9 +127,8 @@ class RobotModel:
         the first call for that pair and kept, so that a batched call copies
         no inertia to the device."""
         a_grav = np.concatenate([np.zeros(3), -self.gravity])
-        return cached_tensors(self._tensors,
-                              (self.xtree, self.inertia, self.xfoot, self.gravity, a_grav),
-                              dtype, device, ModelTensors._make)
+        return ModelTensors._make(constant(a, dtype, device) for a in
+                                  (self.xtree, self.inertia, self.xfoot, self.gravity, a_grav))
 
 
 @functools.lru_cache(maxsize=8)

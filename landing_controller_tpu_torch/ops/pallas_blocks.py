@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from .._device import constant
 from ..tracing import count
 from ._build import load_library
 
@@ -95,7 +96,7 @@ def qd_inverse_ref(S, np_: int, nd: int):
     P = S[:, :np_, :np_]
     Bm = S[:, np_:, :np_]
     D = -S[:, np_:, np_:]
-    nan = torch.tensor(float("nan"), dtype=S.dtype, device=S.device)
+    nan = constant(float("nan"), S.dtype, S.device)
 
     def chol(A):
         # a non-finite input can pass LAPACK's own test (info 0) with a
@@ -240,7 +241,7 @@ def chol_inverse_ref(A):
     A failed factorization yields NaN inverses and ok = False."""
     L, info = torch.linalg.cholesky_ex(A)
     ok = (info == 0) & torch.isfinite(L).flatten(1).all(1)  # a NaN input can give info 0
-    nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
+    nan = constant(float("nan"), A.dtype, A.device)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
     Ainv = torch.cholesky_solve(eye, torch.where(ok[:, None, None], L, nan))
     # contiguous, as the kernel's output (the custom op's fake implementation)

@@ -5,14 +5,17 @@ time is the slowest lane's.  This solver runs the solve in K-iteration
 segments and refills finished lanes with fresh scenarios, so throughput
 scales with the average iteration count instead of the maximum.
 
-Three pieces of the design keep the host out of the way:
+Four pieces of the design keep the host out of the way:
 
 - the pool's initial lane data (scaled problem + IPState) is precomputed
   once per cold-guess variant, B scenarios per call, before the run;
 - harvest and refill are gathers and scatters on the device: finished lanes
   scatter their results into per-scenario slots, and refilled or retrying
   lanes gather their fresh lane data from the pool;
-- the host reads one small packed stats tensor per segment.
+- the host reads one small packed stats tensor per segment;
+- on a card, one masked iteration of the structured solver is captured
+  once as a CUDA graph (:class:`_IterationGraph`) and replayed ``segment``
+  times a segment, so an iteration costs one launch instead of thousands.
 
 The step of pool size P (:meth:`StreamingSolver.get_step`) is ``segment``
 masked IP iterations followed by one harvest-and-refill; it can be saved
@@ -38,11 +41,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._tree import tree_cat, tree_map, tree_stack, tree_where
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+from .._tree import tree_cat, tree_flatten, tree_map, tree_stack, tree_where
 from ..problems.landing import LandingParams
 from ..solver.ip import IPState
 from ..solver.scaling import ScaledNLP
-from ..tracing import count, span
+from ..tracing import count, counters, span
 
 # the saved step's file: this line, one JSON header line, then the programs
 STEP_MAGIC = b"LCSTRMT2\n"
@@ -84,6 +89,53 @@ class _StreamCarry:
     res_z: torch.Tensor  # (P+1, n_vars) harvested solutions (collect_z) or (P+1, 0)
 
 
+class _IterationGraph:
+    """One masked IP iteration of B lanes, captured as a CUDA graph over
+    static lane buffers (``lanes``).  :meth:`load` copies a carry's lanes in;
+    each :meth:`replay` runs the iteration on them and, as the graph's last
+    operations, copies the new state back, so the buffers advance in place.
+
+    Before the capture a few eager iterations run on a side stream (results
+    dropped), as CUDA graph capture wants, which also builds every cached
+    constant and kernel the iteration uses.  The counters those iterations
+    and the capture add are taken back, and what one captured iteration
+    counted (``qd_inverse.launches``) is added at each replay, so that
+    :func:`..tracing.counters` reads what the eager iterations would."""
+
+    WARMUP = 3
+
+    def __init__(self, iterate, lanes: _Lanes):
+        self.lanes = tree_map(torch.clone, lanes)
+        self._leaves = [t for _, t in tree_flatten(self.lanes)]
+        state = [t for _, t in tree_flatten(self.lanes.state)]
+        before = counters()
+        side = torch.cuda.Stream(device=lanes.state.z.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                iterate(self.lanes)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = counters()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out = iterate(self.lanes)
+            torch._foreach_copy_(state, [t for _, t in tree_flatten(out.state)])
+        self.counts = counters() - warm
+        for name, n in (counters() - before).items():
+            count(name, -n)
+        count("stream.graph_captures")
+
+    def load(self, lanes: _Lanes) -> _Lanes:
+        torch._foreach_copy_(self._leaves, [t for _, t in tree_flatten(lanes)])
+        return self.lanes
+
+    def replay(self) -> _Lanes:
+        self.graph.replay()
+        for name, n in self.counts.items():
+            count(name, n)
+        return self.lanes
+
+
 class StreamingSolver:
     """Continuous-throughput wrapper over one LandingSolver.
 
@@ -93,6 +145,14 @@ class StreamingSolver:
 
     A scenario gets one attempt per entry of ``attempt_iters``; a single
     deadline records every scenario after its first attempt.
+
+    The live step runs its iterations as replays of one captured CUDA graph
+    (:class:`_IterationGraph`, one per lane shape, dtype and device) where
+    the lanes are CUDA tensors, the solver is ``structured``, and no trace
+    or other capture is under way; everywhere else (the CPU, the dense
+    step, a loaded step, a trace) it runs them eagerly.  The counters
+    ``stream.graph_captures``, ``stream.graph_replays`` and
+    ``stream.eager_iterations`` say which ran.
     """
 
     def __init__(
@@ -127,6 +187,7 @@ class StreamingSolver:
         self.n_attempts = len(self.attempt_iters)
         self.collect_z = collect_z
         self._step_cache: dict = {}
+        self._graphs: dict = {}  # captured iterations, by the lanes' shapes
         self._init_aot = None  # the loaded pool init (load_step)
 
     # ------------------------------------------------------------------
@@ -152,16 +213,36 @@ class StreamingSolver:
             prog = self.solver.program(lanes.snlp(self.solver.problem))
         return dataclasses.replace(lanes, state=prog.step(lanes.state))
 
-    def _compose(self, iterate, harvest):
+    def _graph(self, lanes: _Lanes) -> "_IterationGraph | None":
+        """The captured iteration for these lanes (captured at the first
+        call), or None where the iteration runs eagerly."""
+        z = lanes.state.z
+        if not (z.is_cuda and self.solver.structured and type(z) is torch.Tensor) \
+                or _get_current_dispatch_mode() is not None or torch.compiler.is_compiling() \
+                or torch.cuda.is_current_stream_capturing():
+            return None
+        key = tuple((name, t.shape, t.dtype) for name, t in tree_flatten(lanes)) + (z.device,)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _IterationGraph(self._iterate, lanes)
+        return graph
+
+    def _compose(self, iterate, harvest, live: bool = False):
         """The step ``(pool, carry) -> carry``: ``segment`` masked iterations
-        of the lanes, then one harvest and refill."""
+        of the lanes, then one harvest and refill.  ``live``: ``iterate`` is
+        :meth:`_iterate`, which may run as a captured graph."""
 
         def step(pool, carry):
             lanes = carry.lanes
+            graph = self._graph(lanes) if live else None
+            if graph is not None:
+                lanes = graph.load(lanes)
             for _ in range(self.segment):
                 with span("solver.iteration"):
-                    lanes = iterate(lanes)
+                    lanes = graph.replay() if graph is not None else iterate(lanes)
             count("ip.iterations", self.segment)
+            count("stream.graph_replays" if graph is not None else "stream.eager_iterations",
+                  self.segment)
             with span("stream.harvest"):
                 return harvest(pool, dataclasses.replace(carry, lanes=lanes))
 
@@ -173,7 +254,7 @@ class StreamingSolver:
         step = self._step_cache.get(P)
         if step is None:
             step = self._step_cache[P] = self._compose(
-                self._iterate, lambda pool, carry: self._harvest(pool, carry, P))
+                self._iterate, lambda pool, carry: self._harvest(pool, carry, P), live=True)
         return step
 
     # -------------------------------------------------- saved step programs

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import constant
 from ..dynamics import legs
 from ..dynamics.rotations import rpy_to_rot_xyz, rpy_to_rot_zyx
 from ..dynamics.srbm import srbm_xdot
@@ -228,7 +229,7 @@ class LandingProblem:
     def _stage_cost(self, x, u, kp):
         """Running QX/Qc/Qf cost of one knot (quadruped_SRBM_NLP.m:82-91),
         any leading dims."""
-        p_hip = torch.tensor(self.config.p_hip_cost, dtype=x.dtype, device=x.device).reshape(12)
+        p_hip = constant(self.config.p_hip_cost, x.dtype, x.device).reshape(12)
         x_err = x - kp["x_ref"]
         pf_err = _tile4(x[..., 0:3]) + p_hip - u[..., :12]
         f_err = u[..., 12:] - kp["u_ref"][..., 12:]
@@ -381,8 +382,8 @@ class LandingProblem:
         not dt_k; so does this.  (B, 24 (N-2))."""
         rp = self.robot_params
         X = v.X
-        gr = torch.tensor([rp.abad_gear_ratio, rp.hip_gear_ratio, rp.knee_gear_ratio] * 4,
-                          dtype=X.dtype, device=X.device)
+        gr = constant([rp.abad_gear_ratio, rp.hip_gear_ratio, rp.knee_gear_ratio] * 4,
+                      X.dtype, X.device)
         tau = legs.leg_torques(rp, v.jpos[:, 1:], X[:, 1:-1, 3:6], v.U[:, 1:, 12:])
         current = (tau / gr) / (1.5 * rp.motor_kt)
         jvel = (v.jpos[:, 1:] - v.jpos[:, :-1]) / theta.dt[:, :1, None]
@@ -428,7 +429,7 @@ class LandingProblem:
 
     def _p_rel(self, x_k, u_k, R_b2w):
         """Foot positions relative to SRBM hips, world frame, (..., 4, 3)."""
-        hips = torch.tensor(self.config.hip_srbm_location, dtype=x_k.dtype, device=x_k.device)
+        hips = constant(self.config.hip_srbm_location, x_k.dtype, x_k.device)
         r_hip = x_k[..., None, :3] + hips @ R_b2w.transpose(-1, -2)
         return u_k[..., :12].reshape(u_k.shape[:-1] + (4, 3)) - r_hip
 
@@ -470,7 +471,7 @@ class LandingProblem:
         # velocity-scaled kinematic box (landing_optimization.m:149-163)
         kbx = cfg.kin_box_x0 + kp["kin_box"][..., 0:1]
         kby = cfg.kin_box_y0 + kp["kin_box"][..., 1:2]
-        right = torch.tensor(cfg.side_sign, dtype=x_k.dtype, device=x_k.device) < 0
+        right = constant(np.asarray(cfg.side_sign) < 0, torch.bool, x_k.device)
         inner = torch.full_like(kby, cfg.kin_box_y_inner)
         y_upper = torch.where(right, inner, kby)
         y_lower = torch.where(right, -kby, -inner)
@@ -489,7 +490,7 @@ class LandingProblem:
 
         # torque limits tau = J' (-R_w2b f) (landing_optimization.m:167-171)
         tau = legs.leg_torques(self.robot_params, jpos_k, rpy, u_k[..., 12:])
-        tau_max = torch.tensor(cfg.tau_max * 4, dtype=x_k.dtype, device=x_k.device)
+        tau_max = constant(cfg.tau_max * 4, x_k.dtype, x_k.device)
         torque = torch.cat([tau_max - tau, tau + tau_max], -1)
 
         fric = self._friction(u_k, kp)

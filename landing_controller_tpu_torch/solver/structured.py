@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.func import hessian, jacfwd, vmap
 
+from .._device import constant
 from ..ops.block_tridiag import qd_block_tridiag_factor, qd_block_tridiag_solve
 from ..ops.cr_inverse import cri_factor, cri_solve
 from ..ops.cyclic_reduction import cr_factor, cr_solve
@@ -86,12 +87,15 @@ def make_structured_newton_step(problem, theta, cfg, snlp):
     B = snlp.batch
     R = B * (n - 1)
     n_vars = problem.n_vars
-    idx = torch.as_tensor(L["idx"], device=dev)
-    valid = idx >= 0
-    idx_safe = torch.where(valid, idx, torch.zeros_like(idx))
-    valid_f = valid.to(dtype)
-    flat_pos = torch.nonzero(valid.reshape(-1)).reshape(-1)
-    flat_idx = idx.reshape(-1)[flat_pos]
+    # the layout's index tensors, made once per dtype and device (constant)
+    idx = L["idx"]
+    valid_np = idx >= 0
+    flat_pos_np = np.flatnonzero(valid_np)
+    valid = constant(valid_np, torch.bool, dev)
+    valid_f = constant(valid_np, dtype, dev)
+    idx_safe = constant(np.where(valid_np, idx, 0), torch.int64, dev)
+    flat_pos = constant(flat_pos_np, torch.int64, dev)
+    flat_idx = constant(idx.reshape(-1)[flat_pos_np], torch.int64, dev)
 
     mg_term = 24 if pcfg.terminal_box else 0
     mgk = (problem.n_ineq - mg_term) // (n - 1)

@@ -24,7 +24,10 @@ a ``torch.profiler`` Chrome trace, whose event starts at
 A program that ``make_fx`` or ``torch.export`` traced holds no spans, since
 the trace sees only tensor operations: a saved step (``StreamingSolver.
 load_step``) reports its ``stream.*`` and ``solver.iteration`` spans, which
-its host loop opens, and none of the phases inside an iteration.
+its host loop opens, and none of the phases inside an iteration.  Nor does
+a replay of the stream's captured CUDA graph: each replay is one
+``solver.iteration`` span, and the phases' spans are recorded once, at the
+capture, in the stream's set-up.
 
 ``count(name, n)`` adds to a registry of integers that is always on, at the
 cost of a dictionary update: ``qd_inverse.launches`` and
@@ -33,8 +36,13 @@ version and is not one), ``ip.iterations`` (interior-point iterations run
 over whole batches, masked lanes included, by ``solver.ip.solve``, the
 stream's step and a loaded solver), ``stream.finished`` and
 ``stream.retried`` (drops a stream's run finished, and those of them that
-took more than one attempt).  :func:`counters` reads them; a caller takes
-the difference around its own work, or calls :func:`reset`.
+took more than one attempt), ``stream.graph_captures`` (iterations a
+stream captured as a CUDA graph), ``stream.graph_replays`` and
+``stream.eager_iterations`` (a stream's batch iterations run as replays of
+such a graph, and run otherwise).  A replay adds what the captured
+iteration counted (``qd_inverse.launches``), so the counters read as the
+eager iterations would.  :func:`counters` reads them; a caller takes the
+difference around its own work, or calls :func:`reset`.
 """
 
 from __future__ import annotations

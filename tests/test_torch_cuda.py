@@ -375,3 +375,70 @@ def test_custom_ops_launch_the_kernels_and_trace(dev):
         torch.ops.landing_controller_tpu_torch.qd_inverse(S.half(), 6, 4)
     with pytest.raises(ValueError):
         torch.ops.landing_controller_tpu_torch.qd_inverse(S, 5, 4)
+
+
+def _graph_and_eager_runs(ss_of, P):
+    """Two streams from ``ss_of()`` over the same pool: the live step (its
+    iterations replayed from one captured CUDA graph) and the same step with
+    its iterations run eagerly.  Returns, for each, the packed results and
+    the lanes' z after every segment and the counters the run added."""
+    out = []
+    for live in (True, False):
+        ss = ss_of()
+        step = ss._compose(ss._iterate, lambda pool, carry: ss._harvest(pool, carry, P), live=live)
+        seen = []
+
+        def recording(pool, carry, step=step, seen=seen):
+            carry = step(pool, carry)
+            seen.append((carry.res.cpu().numpy(), carry.lanes.state.z.clone()))
+            return carry
+
+        ss._step_cache[P] = recording
+        before = counters()
+        ss.run(P)
+        torch.cuda.synchronize()
+        out.append((seen, counters() - before, ss))
+    return out
+
+
+def _kino_graph_solver():
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.tools.common import kino_config
+
+    cfg = kino_config(ladder_scales=(0.0, 1.0, 10.0, 1000.0), n_linesearch=12)
+    return LandingSolver("kinodynamic", dtype=torch.float32, config=cfg, guess="reference",
+                         retry_guess="nn", device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["srbm_lcp", "kinodynamic"])
+def test_stream_graph_replays_match_the_eager_iterations(dev, kind):
+    """The stream's captured iteration, replayed, gives what the eager
+    iterations give: B=8 lanes over a pool of 20 with deadlines (20, 20) and
+    segments of 10, so that lanes time out, retry, finish and are refilled
+    over several harvests.  The result rows agree exactly (finished,
+    converged, iterations, attempts) and to 1e-5 relative (violation), the
+    lanes' z to 1e-5 relative after every segment, and the counters read
+    the same on both paths; the graph run captures once."""
+    from landing_controller_tpu_torch.bench import bench_solver, bench_stream, make_sampler
+
+    solver = bench_solver() if kind == "srbm_lcp" else _kino_graph_solver()
+    (g_seen, g_count, g_ss), (e_seen, e_count, e_ss) = _graph_and_eager_runs(
+        lambda: bench_stream(solver, make_sampler(3), batch=8, segment=10, attempt_iters=(20, 20)),
+        20)
+    assert len(g_seen) == len(e_seen) >= 4
+    assert e_seen[-1][0][0, :20].sum() == 20 and e_seen[-1][0][4, :20].max() == 2  # retried
+    for (g_res, g_z), (e_res, e_z) in zip(g_seen, e_seen, strict=True):
+        np.testing.assert_array_equal(g_res[[0, 1, 2, 4]], e_res[[0, 1, 2, 4]])
+        np.testing.assert_allclose(g_res[3], e_res[3], rtol=1e-5, atol=1e-12)
+        assert float((g_z - e_z).norm()) <= 1e-5 * float(e_z.norm())
+    assert g_count["stream.graph_captures"] == 1 and len(g_ss._graphs) == 1
+    assert g_count["stream.graph_replays"] == g_count["ip.iterations"] > 0
+    assert e_count["stream.graph_captures"] == 0 and e_ss._graphs == {}
+    assert e_count["stream.eager_iterations"] == e_count["ip.iterations"]
+    for name in ("qd_inverse.launches", "ip.iterations", "stream.finished", "stream.retried"):
+        assert g_count[name] == e_count[name], name
+    assert e_count["qd_inverse.launches"] == 6 * e_count["ip.iterations"] > 0
+    # a second run of the same stream replays the graph it has
+    before = counters()
+    g_ss.run(8)
+    assert (counters() - before)["stream.graph_captures"] == 0

@@ -128,3 +128,63 @@ def test_progress_cb_follows_jax():
     for got in (calls[-1], j_calls[-1], j_stats):
         for key in STATS_KEYS - {"wall_s", "converged_per_sec"}:
             np.testing.assert_array_equal(got[key], stats[key])
+
+
+# ---- the captured iteration's preconditions and the eager fallback
+def _kino_solver(n_knots=6, max_iter=60):
+    cfg = IPConfig(max_iter=max_iter, hessian_mode="hybrid", mu_min=1e-5, tol=2e-4,
+                   sigma_max=1e5, refine_steps=3, relax_scale=1.0, delta_c=1e-6,
+                   kkt_backend="cri", ladder_scales=(0.0, 1.0, 10.0, 1000.0), n_linesearch=12,
+                   mu_strategy="monotone", corrector=0)
+    return LandingSolver("kinodynamic", n_knots=n_knots, dtype=torch.float32, config=cfg,
+                         guess="reference", device="cpu")
+
+
+@pytest.mark.parametrize("make", [_solver, _kino_solver], ids=["srbm_lcp", "kinodynamic"])
+def test_second_iteration_makes_no_tensor_from_host_data(make, monkeypatch):
+    """After the first iteration (which builds the cached constants), an
+    iteration calls neither ``torch.nonzero`` nor ``torch.tensor`` /
+    ``torch.as_tensor`` / ``torch.from_numpy`` on host data: on a card each
+    is a copy and a wait, which a CUDA graph's capture refuses."""
+    from landing_controller_tpu_torch.parallel.stream import _Lanes
+
+    ss = StreamingSolver(make(), batch=2, segment=2, sampler=_sampler)
+    q, qd = (torch.as_tensor(a, dtype=torch.float32) for a in _sampler(2))
+    lanes = ss._iterate(_Lanes.of(*ss.solver.init_lanes(q, qd, 0)))
+
+    def refuse(name, real=None):
+        def call(*args, **kw):
+            if real is not None and isinstance(args[0], torch.Tensor):
+                return real(*args, **kw)
+            raise AssertionError(f"torch.{name} on the iteration's path")
+        return call
+
+    monkeypatch.setattr(torch, "tensor", refuse("tensor"))
+    monkeypatch.setattr(torch, "as_tensor", refuse("as_tensor", torch.as_tensor))
+    monkeypatch.setattr(torch, "from_numpy", refuse("from_numpy"))
+    monkeypatch.setattr(torch, "nonzero", refuse("nonzero"))
+    monkeypatch.setattr(torch.Tensor, "nonzero", refuse("nonzero"))
+    after = ss._iterate(lanes)
+    assert bool((after.state.it == 2).all())
+
+
+def test_cpu_stream_runs_eagerly_and_still_exports(tmp_path):
+    """On the CPU no iteration is captured: the graph cache stays empty and
+    ``stream.eager_iterations`` counts every iteration of the run; the
+    stream's step is then still traced and saved by ``export_step``."""
+    from landing_controller_tpu_torch import tracing
+
+    ss = StreamingSolver(_solver(retry_guess="reference"), batch=2, segment=3,
+                         sampler=_sampler, attempt_iters=(6, 3))
+    before = tracing.counters()
+    ss.run(3)
+    c = tracing.counters() - before
+    assert ss._graphs == {}
+    assert c["stream.graph_captures"] == 0 and c["stream.graph_replays"] == 0
+    assert c["stream.eager_iterations"] == c["ip.iterations"] > 0
+    path = str(tmp_path / "step.lcs")
+    ss.export_step(path, 3)
+    loaded = StreamingSolver(_solver(retry_guess="reference"), batch=2, segment=3,
+                             sampler=_sampler, attempt_iters=(6, 3))
+    assert loaded.load_step(path, 3)
+    assert loaded._graphs == {}
