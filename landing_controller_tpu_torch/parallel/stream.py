@@ -13,9 +13,10 @@ Four pieces of the design keep the host out of the way:
   scatter their results into per-scenario slots, and refilled or retrying
   lanes gather their fresh lane data from the pool;
 - the host reads one small packed stats tensor per segment;
-- on a card, one masked iteration of the structured solver is captured
-  once as a CUDA graph (:class:`_IterationGraph`) and replayed ``segment``
-  times a segment, so an iteration costs one launch instead of thousands.
+- on a card, one masked iteration of the solver (the structured step's or
+  the dense KKT step's) is captured once as a CUDA graph
+  (:class:`_IterationGraph`) and replayed ``segment`` times a segment, so
+  an iteration costs one launch instead of thousands.
 
 The step of pool size P (:meth:`StreamingSolver.get_step`) is ``segment``
 masked IP iterations followed by one harvest-and-refill; it can be saved
@@ -44,10 +45,9 @@ import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from .._tree import tree_cat, tree_flatten, tree_map, tree_stack, tree_where
-from ..problems.landing import LandingParams
 from ..solver.ip import IPState
 from ..solver.scaling import ScaledNLP
-from ..tracing import count, counters, span
+from ..tracing import count, counters, finish_device_reads, span, start_device_reads
 
 # the saved step's file: this line, one JSON header line, then the programs
 STEP_MAGIC = b"LCSTRMT2\n"
@@ -58,7 +58,7 @@ class _Lanes:
     """Per lane: the scaled problem's tensors (parameters and scales) and the
     solver state; only tensors, so that a saved program takes and returns it."""
 
-    theta: LandingParams
+    theta: object  # the solver's params_type (LandingParams, EEParamParams)
     z_scale: torch.Tensor
     f_scale: torch.Tensor
     eq_scale: torch.Tensor
@@ -99,8 +99,10 @@ class _IterationGraph:
     dropped), as CUDA graph capture wants, which also builds every cached
     constant and kernel the iteration uses.  The counters those iterations
     and the capture add are taken back, and what one captured iteration
-    counted (``qd_inverse.launches``) is added at each replay, so that
-    :func:`..tracing.counters` reads what the eager iterations would."""
+    counted on the host (``qd_inverse.launches``) is added at each replay,
+    so that :func:`..tracing.counters` reads what the eager iterations
+    would; a device counter (``dense_kkt.emergency``) counts in the graph
+    itself."""
 
     WARMUP = 3
 
@@ -148,9 +150,9 @@ class StreamingSolver:
 
     The live step runs its iterations as replays of one captured CUDA graph
     (:class:`_IterationGraph`, one per lane shape, dtype and device) where
-    the lanes are CUDA tensors, the solver is ``structured``, and no trace
-    or other capture is under way; everywhere else (the CPU, the dense
-    step, a loaded step, a trace) it runs them eagerly.  The counters
+    the lanes are CUDA tensors and no trace or other capture is under way,
+    on the structured and the dense path alike; everywhere else (the CPU, a
+    loaded step, a trace) it runs them eagerly.  The counters
     ``stream.graph_captures``, ``stream.graph_replays`` and
     ``stream.eager_iterations`` say which ran.
     """
@@ -217,7 +219,7 @@ class StreamingSolver:
         """The captured iteration for these lanes (captured at the first
         call), or None where the iteration runs eagerly."""
         z = lanes.state.z
-        if not (z.is_cuda and self.solver.structured and type(z) is torch.Tensor) \
+        if not (z.is_cuda and type(z) is torch.Tensor) \
                 or _get_current_dispatch_mode() is not None or torch.compiler.is_compiling() \
                 or torch.cuda.is_current_stream_capturing():
             return None
@@ -281,11 +283,12 @@ class StreamingSolver:
         scenarios (the cold-guess variant a (B,) input, which picks each
         lane's family branch-free), one masked iteration, and the harvest
         and refill, traced on the solver's device (the counterpart of the
-        JAX package's ``export_step``)."""
+        JAX package's ``export_step``).  A kind whose parameters the saved
+        step cannot carry raises ``NotImplementedError``."""
         from ..runtime.artifact import TRACE_Q, TRACE_QD, register_stream_serialization
         from ..runtime.programs import trace_program, write_programs
 
-        register_stream_serialization()
+        register_stream_serialization(self.solver)
         B, V = self.batch, self.n_attempts
         s = self.solver
         q = torch.tensor(TRACE_Q, dtype=s.dtype, device=s.device).expand(B, 6).clone()
@@ -309,11 +312,12 @@ class StreamingSolver:
         :meth:`run` runs its programs.  Returns False where the file is not
         a saved step, its key differs or its number of attempts does; any
         other fault (a truncated or damaged file, a program that does not
-        load) raises."""
+        load) raises, and so does a kind whose parameters the saved step
+        cannot carry (``NotImplementedError``)."""
         from ..runtime.artifact import register_stream_serialization
         from ..runtime.programs import Program, read_programs
 
-        register_stream_serialization()
+        register_stream_serialization(self.solver)
         with open(path, "rb") as f:
             if f.readline() != STEP_MAGIC:
                 return False
@@ -454,7 +458,11 @@ class StreamingSolver:
             with span("stream.segment"):
                 carry = step(pool, carry)
             with span("stream.read"):
-                res_np = carry.res.cpu().numpy()  # the one host read per segment
+                # the one host read per segment, which brings the device
+                # counters along
+                reads = start_device_reads()
+                res_np = carry.res.cpu().numpy()
+                finish_device_reads(reads)
             if progress_cb is not None:
                 with span("stream.callback"):
                     progress_cb(self._stats(res_np, ics, P, B, t0))

@@ -44,12 +44,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import resolve_device
-from ..dynamics.rotations import bmat_f, bmat_f_dot, rpy_to_rot_zyx
+from .._device import constant, resolve_device
+from ..dynamics.rotations import binv, bmat_f, bmat_f_dot, rpy_to_rot_zyx
 from ..models import srbm_constants
 
 __all__ = ["EEParamConfig", "EEParamParams", "EEParamProblem", "EEParamVars",
-           "default_eeparam_params", "eeparam_problem"]
+           "default_eeparam_params", "eeparam_params_from_drops", "eeparam_problem"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +139,26 @@ def default_eeparam_params(dtype=torch.float32, device="cuda", batch: int = 1) -
         horizon=f(0.8), mu=f(1.0), l_leg_max=f(0.35), f_max=f(250.0), mass=f(mass),
         ib=f(ib), ib_inv=f(ib_inv),
     )
+
+
+def eeparam_params_from_drops(q_init, qd_init, horizon: float = 0.8) -> EEParamParams:
+    """EEParamParams of B drops given as the stream gives them: q (B, 6)
+    [position, roll pitch yaw], qd (B, 6) [world angular velocity, linear
+    velocity].  The reference's own set-up (quadruped_SRBM_eeParam.m:412-447):
+    r_init = q[:3], theta_init = q[3:6], rdot_init = qd[3:6],
+    thetadot_init = binv(theta_init) qd[:3]; the other fields are its
+    defaults (:func:`default_eeparam_params`), the horizon the problem's.
+
+    The drops' samplers draw roll, pitch and yaw in the XYZ convention, and
+    this problem reads them in the legacy ZYX one: the two agree where only
+    pitch is drawn, as in the eeParam drop sweep, and not in general."""
+    B = q_init.shape[0]
+    theta = default_eeparam_params(q_init.dtype, q_init.device, batch=B)
+    rpy = q_init[:, 3:6]
+    return dataclasses.replace(
+        theta, r_init=q_init[:, 0:3], theta_init=rpy, rdot_init=qd_init[:, 3:6],
+        thetadot_init=_mv(binv(rpy), qd_init[:, 0:3]),
+        horizon=torch.full((B,), horizon, dtype=q_init.dtype, device=q_init.device))
 
 
 def _polyval(coefs, t):
@@ -303,11 +323,12 @@ class EEParamProblem:
         return (w[..., None] * vals).sum(-2)
 
     def _colloc_times(self, dtype, device):
-        """The collocation times min(k dt_dyn, T), k = 0..n_colloc-1, in dtype."""
+        """The collocation times min(k dt_dyn, T), k = 0..n_colloc-1, in dtype
+        (computed in dtype by numpy, kept on the device)."""
         c = self.config
-        ts = torch.arange(c.n_colloc, dtype=dtype, device=device) * torch.tensor(
-            c.dt_dyn, dtype=dtype, device=device)
-        return torch.clamp(ts, max=c.horizon)
+        np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+        ts = np.arange(c.n_colloc, dtype=np_dtype) * np_dtype.type(c.dt_dyn)
+        return constant(np.minimum(ts, np_dtype.type(c.horizon)), dtype, device)
 
     def _base_at_t(self, v: EEParamVars, ts):
         """Base position/orientation and derivatives at the times ts (T,):
@@ -376,7 +397,7 @@ class EEParamProblem:
         # are the physical value/derivatives (physical-time basis)
         db = c.dt_base
         lin0, ang0 = v.base_lin[:, 0], v.base_ang[:, 0]
-        grav = torch.tensor([0.0, 0.0, -9.81], dtype=dtype, device=dev)
+        grav = constant([0.0, 0.0, -9.81], dtype, dev)
         rows.append(lin0[..., 5] - theta.r_init)
         rows.append(_deriv(lin0)[..., 4] - theta.rdot_init)
         rows.append(ang0[..., 5] - theta.theta_init)
@@ -442,7 +463,7 @@ class EEParamProblem:
         ts = self._colloc_times(z.dtype, z.device)
         r, _, _, th, _, _ = self._base_at_t(v, ts)
         R_b2w = rpy_to_rot_zyx(th)  # (B, T, 3, 3)
-        hips = torch.tensor(c.hip_srbm_location, dtype=z.dtype, device=z.device)
+        hips = constant(c.hip_srbm_location, z.dtype, z.device)
         p = self._legs_at(v, ts, 1)  # (B, T, 4, 3)
         p_rel = p - (r[..., None, :] + _mv(R_b2w[..., None, :, :], hips))
         kx, ky, kz = c.kin_box

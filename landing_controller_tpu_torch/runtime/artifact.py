@@ -68,15 +68,22 @@ def enable_persistent_cache(cache_dir: str | None = None) -> str:
     return _build.BUILD_DIR
 
 
-def register_stream_serialization() -> None:
+def register_stream_serialization(solver=None) -> None:
     """Register the dataclasses that cross the saved stream step's program
     boundary (``StreamingSolver.export_step``) as pytree nodes with
     serialized names, so that their flatten and unflatten specs can be
-    written to the step's file and read back; idempotent."""
+    written to the step's file and read back; idempotent.  The step's format
+    carries the landing kinds' parameters (``LandingParams``): given a
+    ``solver`` of another ``params_type`` (the eeparam kind's), it raises
+    ``NotImplementedError``."""
     from ..parallel.stream import _Lanes, _StreamCarry
     from ..problems.landing import LandingParams
     from ..solver.ip import IPState
 
+    if solver is not None and solver.params_type is not LandingParams:
+        raise NotImplementedError(
+            f"a saved stream step of kind {solver.kind!r} ({solver.params_type.__name__}) is not "
+            "implemented; its stream runs the live step")
     for cls in (IPState, LandingParams, _Lanes, _StreamCarry):
         if cls not in _pytree.SUPPORTED_NODES:
             torch.export.register_dataclass(

@@ -32,9 +32,10 @@ from typing import Callable
 import torch
 from torch.func import grad, jvp, vjp
 
+from .._device import constant
 from .._tree import tree_map, tree_where
 from ..ops.block_tridiag import chol_nan
-from ..tracing import count, span
+from ..tracing import count, count_on_device, span
 
 # a full (unsegmented) solve reads "any lane still running?" once per this
 # many iterations
@@ -166,6 +167,16 @@ def _first_ok(oks):
                        torch.full_like(oks[:, 0], oks.shape[1] - 1, dtype=torch.int64))
 
 
+def _chol_solve(L, b):
+    """(L L') x = b of lower Cholesky factors L (B, n, n), b (B, n, k): two
+    triangular solves, which is LAPACK's potrs (the same bits as
+    ``torch.cholesky_solve`` on the CPU); on a card the batched
+    ``cholesky_solve`` goes to MAGMA, which cannot be captured in a CUDA
+    graph, and the triangular solves to cuBLAS, which can."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
 def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     """Inertia-corrected Schur-complement KKT solve of B lanes.
 
@@ -173,7 +184,9 @@ def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     lane, where d is the smallest shift of the ladder {delta_w, s delta_last}
     (``cfg.ladder_scales``) whose shifted, Jacobi-equilibrated H0 has a
     Cholesky factor; all candidates are factored in one batched call, and a
-    lane where none succeeds takes the emergency shift 1e3 delta_last + 1e3.
+    lane where none succeeds takes the emergency shift 1e3 delta_last + 1e3
+    (counted on the device as ``dense_kkt.emergency``, beside
+    ``dense_kkt.lane_iterations``, the lanes factored).
     H0 (B, n, n), Je (B, me, n), rhs_z (B, n), rhs_y (B, me), delta_last (B,).
 
     Returns (dz, dy, delta_used, resolve); ``resolve(rhs_z, rhs_y)`` re-solves
@@ -181,54 +194,57 @@ def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     B, n = rhs_z.shape
     me = rhs_y.shape[-1]
     dtype, dev = H0.dtype, H0.device
-    lanes = torch.arange(B, device=dev)
-    eye = torch.eye(n, dtype=dtype, device=dev)
-    # Jacobi equilibration D = (diag(H) + base)^(-1/2) with an absolute floor
-    # base = 1e-2 mean(diag) (zero-curvature variables keep a bounded scale
-    # and their share of the shift)
-    diag0 = torch.diagonal(H0, dim1=-2, dim2=-1)
-    base = 1e-2 * diag0.mean(-1) + 1e-12
-    dH = torch.sqrt(diag0 + base[:, None])
-    dinv = 1.0 / dH
-    Hn = H0 * dinv[:, :, None] * dinv[:, None, :]
-    deltas = torch.stack(
-        [torch.full_like(delta_last, cfg.delta_w) if sc == 0.0 else sc * delta_last
-         for sc in cfg.ladder_scales] + [1e3 * delta_last + 1e3], 1)  # (B, L + 1)
-    Ls, oks = chol_nan(Hn[:, None] + deltas[:, :, None, None] * eye)
-    nl = len(cfg.ladder_scales)
-    # first successful ladder candidate; where none succeeds, the emergency
-    # shift (the last slot), chosen per lane
-    pick = torch.where(oks[:, :nl].any(1), _first_ok(oks[:, :nl]),
-                       torch.full_like(lanes, nl))
-    L = Ls[lanes, pick]
-    delta_used = deltas[lanes, pick]
+    with span("newton.factor"):
+        lanes = torch.arange(B, device=dev)
+        eye = torch.eye(n, dtype=dtype, device=dev)
+        # Jacobi equilibration D = (diag(H) + base)^(-1/2) with an absolute floor
+        # base = 1e-2 mean(diag) (zero-curvature variables keep a bounded scale
+        # and their share of the shift)
+        diag0 = torch.diagonal(H0, dim1=-2, dim2=-1)
+        base = 1e-2 * diag0.mean(-1) + 1e-12
+        dH = torch.sqrt(diag0 + base[:, None])
+        dinv = 1.0 / dH
+        Hn = H0 * dinv[:, :, None] * dinv[:, None, :]
+        deltas = torch.stack(
+            [torch.full_like(delta_last, cfg.delta_w) if sc == 0.0 else sc * delta_last
+             for sc in cfg.ladder_scales] + [1e3 * delta_last + 1e3], 1)  # (B, L + 1)
+        Ls, oks = chol_nan(Hn[:, None] + deltas[:, :, None, None] * eye)
+        nl = len(cfg.ladder_scales)
+        # first successful ladder candidate; where none succeeds, the emergency
+        # shift (the last slot), chosen per lane
+        pick = torch.where(oks[:, :nl].any(1), _first_ok(oks[:, :nl]),
+                           torch.full_like(lanes, nl))
+        count_on_device("dense_kkt.emergency", pick == nl)
+        count("dense_kkt.lane_iterations", B)
+        L = Ls[lanes, pick]
+        delta_used = deltas[lanes, pick]
+
+        # Schur complement on the equality block (also equilibrated):
+        #   S dy = Je H^-1 rhs_z - rhs_y,   dz = H^-1 (rhs_z - Je' dy)
+        # Je H^-1 Je' is formed as the Gram matrix F'F, F = L^-1 D Je', which is
+        # positive semidefinite by construction: formed as Je (H^-1 Je') in f32
+        # its rounding fails the 1e-7 shift below where the exact matrix passes
+        # (eeParam: an f32 step 30x less accurate than at the shift f64 takes)
+        JeT = Je.transpose(1, 2)
+        F = torch.linalg.solve_triangular(L, dinv[:, :, None] * JeT, upper=False)  # (B, n, me)
+        delta_c = torch.clamp(1e-6 * delta_used, min=cfg.delta_c)
+        eye_s = torch.eye(me, dtype=dtype, device=dev)
+        S = F.transpose(1, 2) @ F + delta_c[:, None, None] * eye_s
+        dS = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=1e-12))
+        dSinv = 1.0 / dS
+        Sn = S * dSinv[:, :, None] * dSinv[:, None, :]
+        # Schur shift ladder: with redundant equality rows Je H^-1 Je' is only
+        # PSD; take the smallest shift whose factor exists
+        s_shifts = constant([1e-7, 1e-5, 1e-3, 1e-1], dtype, dev)
+        Ls_s, oks_s = chol_nan(Sn[:, None] + s_shifts[:, None, None] * eye_s)
+        L_s = Ls_s[lanes, _first_ok(oks_s)]
 
     def hsolve(b):
         """(H + d diag(H + base))^-1 b through the equilibrated factor; b (B, n)."""
-        return torch.cholesky_solve((b * dinv)[..., None], L)[..., 0] * dinv
-
-    # Schur complement on the equality block (also equilibrated):
-    #   S dy = Je H^-1 rhs_z - rhs_y,   dz = H^-1 (rhs_z - Je' dy)
-    # Je H^-1 Je' is formed as the Gram matrix F'F, F = L^-1 D Je', which is
-    # positive semidefinite by construction: formed as Je (H^-1 Je') in f32
-    # its rounding fails the 1e-7 shift below where the exact matrix passes
-    # (eeParam: an f32 step 30x less accurate than at the shift f64 takes)
-    JeT = Je.transpose(1, 2)
-    F = torch.linalg.solve_triangular(L, dinv[:, :, None] * JeT, upper=False)  # (B, n, me)
-    delta_c = torch.clamp(1e-6 * delta_used, min=cfg.delta_c)
-    eye_s = torch.eye(me, dtype=dtype, device=dev)
-    S = F.transpose(1, 2) @ F + delta_c[:, None, None] * eye_s
-    dS = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=1e-12))
-    dSinv = 1.0 / dS
-    Sn = S * dSinv[:, :, None] * dSinv[:, None, :]
-    # Schur shift ladder: with redundant equality rows Je H^-1 Je' is only
-    # PSD; take the smallest shift whose factor exists
-    s_shifts = torch.tensor([1e-7, 1e-5, 1e-3, 1e-1], dtype=dtype, device=dev)
-    Ls_s, oks_s = chol_nan(Sn[:, None] + s_shifts[:, None, None] * eye_s)
-    L_s = Ls_s[lanes, _first_ok(oks_s)]
+        return _chol_solve(L, (b * dinv)[..., None])[..., 0] * dinv
 
     def ssolve(b):
-        return torch.cholesky_solve((b * dSinv)[..., None], L_s)[..., 0] * dSinv
+        return _chol_solve(L_s, (b * dSinv)[..., None])[..., 0] * dSinv
 
     def mv(M, v):
         return (M @ v[..., None])[..., 0]
@@ -237,17 +253,18 @@ def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     Hd = H0 + (delta_used[:, None] * dH * dH)[:, :, None] * eye
 
     def resolve(rhs_z_v, rhs_y_v):
-        dy_v = ssolve(mv(Je, hsolve(rhs_z_v)) - rhs_y_v)
-        dz_v = hsolve(rhs_z_v - mv(JeT, dy_v))
-        for _ in range(cfg.refine_steps):
-            # one sweep of iterative refinement on the full KKT system
-            r_z = rhs_z_v - (mv(Hd, dz_v) + mv(JeT, dy_v))
-            r_y = rhs_y_v - (mv(Je, dz_v) - delta_c[:, None] * dy_v)
-            ddy = ssolve(mv(Je, hsolve(r_z)) - r_y)
-            ddz = hsolve(r_z - mv(JeT, ddy))
-            dz_v = dz_v + ddz
-            dy_v = dy_v + ddy
-        return dz_v, dy_v
+        with span("newton.solve"):
+            dy_v = ssolve(mv(Je, hsolve(rhs_z_v)) - rhs_y_v)
+            dz_v = hsolve(rhs_z_v - mv(JeT, dy_v))
+            for _ in range(cfg.refine_steps):
+                # one sweep of iterative refinement on the full KKT system
+                r_z = rhs_z_v - (mv(Hd, dz_v) + mv(JeT, dy_v))
+                r_y = rhs_y_v - (mv(Je, dz_v) - delta_c[:, None] * dy_v)
+                ddy = ssolve(mv(Je, hsolve(r_z)) - r_y)
+                ddz = hsolve(r_z - mv(JeT, ddy))
+                dz_v = dz_v + ddz
+                dy_v = dy_v + ddy
+            return dz_v, dy_v
 
     dz, dy = resolve(rhs_z, rhs_y)
     return dz, dy, delta_used, resolve
@@ -280,7 +297,9 @@ def make_dense_newton_step(cost_fn, eq_fn, ineq_fn, cfg: IPConfig):
     Hessian of ``cfg.hessian_mode`` ("exact": the Lagrangian's; "gn": the
     cost's; "hybrid": the Lagrangian's with the multipliers scaled by the
     per-lane switch flag, which gives the cost's where it is 0), then
-    H = W + Jg' diag(sigma) Jg and :func:`_solve_kkt`.
+    H = W + Jg' diag(sigma) Jg and :func:`_solve_kkt`, under the spans
+    ``newton.derivatives``, ``newton.factor`` and ``newton.solve`` (the
+    structured step's names).
 
     All three come from one forward-mode pass over the gradient of the
     weighted Lagrangian: the rows E and g that the gradient's forward pass
@@ -300,16 +319,17 @@ def make_dense_newton_step(cost_fn, eq_fn, ineq_fn, cfg: IPConfig):
 
     def newton_step(z, y, lam, sigma, mu, use_exact, r_d, r_g, rhs_z, rhs_y, delta_last):
         n, me = z.shape[1], y.shape[1]
-        if cfg.hessian_mode == "gn":
-            cols = _dense_columns(grad_and_rows, z)
-        else:
-            if cfg.hessian_mode == "hybrid":
-                uf = use_exact.to(z.dtype)[:, None]
-                y, lam = uf * y, uf * lam
-            cols = _dense_columns(grad_and_rows, z, y, lam)
-        # column j of each block is d / d z_j: W[b, i, j] as jacfwd(grad)
-        W, Je, Jg = cols.transpose(1, 2).split([n, me, cols.shape[2] - n - me], 1)
-        H = W + Jg.transpose(1, 2) @ (sigma[:, :, None] * Jg)
+        with span("newton.derivatives"):
+            if cfg.hessian_mode == "gn":
+                cols = _dense_columns(grad_and_rows, z)
+            else:
+                if cfg.hessian_mode == "hybrid":
+                    uf = use_exact.to(z.dtype)[:, None]
+                    y, lam = uf * y, uf * lam
+                cols = _dense_columns(grad_and_rows, z, y, lam)
+            # column j of each block is d / d z_j: W[b, i, j] as jacfwd(grad)
+            W, Je, Jg = cols.transpose(1, 2).split([n, me, cols.shape[2] - n - me], 1)
+            H = W + Jg.transpose(1, 2) @ (sigma[:, :, None] * Jg)
         return _solve_kkt(H, Je, rhs_z, rhs_y, delta_last, cfg)
 
     return newton_step

@@ -43,6 +43,18 @@ such a graph, and run otherwise).  A replay adds what the captured
 iteration counted (``qd_inverse.launches``), so the counters read as the
 eager iterations would.  :func:`counters` reads them; a caller takes the
 difference around its own work, or calls :func:`reset`.
+
+``count_on_device(name, n)`` adds a device tensor's sum to a counter
+without reading it: the sum accumulates on the device (inside a captured
+CUDA graph too, at each replay) and reaches the host where
+:func:`counters` reads it (waiting for the device) or where a stream's
+one host read per segment takes it along (:func:`start_device_reads`,
+:func:`finish_device_reads`).  The dense KKT step counts
+``dense_kkt.emergency`` so (lanes whose every ladder shift failed to
+factor, which took the emergency shift), beside ``dense_kkt.lane_iterations``
+(the lanes it factored, frozen lanes included, as ``ip.iterations`` counts
+whole batches).  The module imports no torch itself; these take the
+tensors of a caller that has.
 """
 
 from __future__ import annotations
@@ -50,13 +62,15 @@ from __future__ import annotations
 import time
 from collections import Counter
 
-__all__ = ["count", "counters", "disable", "enable", "reset", "span", "spans"]
+__all__ = ["count", "count_on_device", "counters", "disable", "enable", "finish_device_reads", "reset",
+           "span", "spans", "start_device_reads"]
 
 _on = False
 _anchor = (0, 0)  # (time.time_ns(), time.perf_counter_ns()) read together
 _records: list = []  # [name, start, end, parent], perf_counter_ns
 _open: list = []  # indices of the spans open now, innermost last
 _counts: Counter = Counter()
+_device_counts: dict = {}  # (name, device) -> 0-dim int64 tensor on that device
 
 
 class _Off:
@@ -104,6 +118,48 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] += n
 
 
+def count_on_device(name: str, n) -> None:
+    """Add the sum of the integer or boolean tensor ``n`` to the counter
+    ``name`` where ``n`` lives, without reading it.  Nothing is counted
+    inside a trace (``make_fx``, ``torch.export``, ``torch.compile``),
+    whose program holds no counter."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    if _get_current_dispatch_mode() is not None or torch.compiler.is_compiling():
+        return
+    key = (name, n.device)
+    acc = _device_counts.get(key)
+    if acc is None:
+        acc = _device_counts[key] = torch.zeros((), dtype=torch.int64, device=n.device)
+    acc.add_(n.sum())
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def start_device_reads() -> list:
+    """Copy every device counter's sum to the host without waiting, and
+    zero it after the copy: ``[(name, host tensor)]``, whose values are
+    there once the host has waited for the device (a blocking read queued
+    after them, as a stream's one read per segment)."""
+    reads = []
+    for (name, _), acc in _device_counts.items():
+        reads.append((name, acc.to("cpu", non_blocking=True, copy=True)))
+        acc.zero_()
+    return reads
+
+
+def finish_device_reads(reads: list) -> None:
+    """Add the sums of :func:`start_device_reads` to the counters (after the
+    host has waited for the device)."""
+    for name, host in reads:
+        _counts[name] += int(host)
+
+
 def enable() -> None:
     """Start recording spans, and anchor their clock to ``time.time_ns``."""
     global _on, _anchor
@@ -127,7 +183,13 @@ def spans() -> list:
 
 
 def counters() -> Counter:
-    """A copy of the counters (a name never counted reads 0)."""
+    """A copy of the counters (a name never counted reads 0).  Device
+    counters are read first, which waits for their devices (not while a
+    CUDA graph is being captured: they are read later)."""
+    if _device_counts and not _capturing():
+        for (name, _), acc in _device_counts.items():
+            _counts[name] += int(acc.item())
+            acc.zero_()
     return Counter(_counts)
 
 
@@ -137,3 +199,5 @@ def reset() -> None:
     _records.clear()
     _open.clear()
     _counts.clear()
+    for acc in _device_counts.values():
+        acc.zero_()

@@ -43,6 +43,10 @@ def test_default_device_is_cuda():
         with pytest.raises(NotImplementedError):
             LandingSolver(device="cpu", config=IPConfig(kkt_backend=backend))
     with pytest.raises(KeyError):
+        LandingSolver("no_such_kind", device="cpu")
+    # eeparam is a kind now, on the dense path, with its own collocation count
+    assert not LandingSolver("eeparam", n_knots=10, device="cpu").structured
+    with pytest.raises(ValueError, match="collocation"):
         LandingSolver("eeparam", device="cpu")
 
 

@@ -442,3 +442,94 @@ def test_stream_graph_replays_match_the_eager_iterations(dev, kind):
     before = counters()
     g_ss.run(8)
     assert (counters() - before)["stream.graph_captures"] == 0
+
+
+def test_eeparam_graph_replays_equal_the_eager_iterations_bit_for_bit(dev):
+    """The eeParam kind's captured iteration (the dense KKT step: the
+    Cholesky ladder, the Schur complement, the forward-mode derivatives),
+    replayed, gives bit for bit what its eager iterations give: B=8 lanes
+    over 8 drops of the eeParam sweep, one segment of 25 iterations, after
+    which every drop finishes.  The result rows, the lanes' z and the
+    counters (``dense_kkt.emergency`` on the device among them) are equal."""
+    from landing_controller_tpu_torch import LandingSolver, StreamingSolver
+
+    rng = np.random.default_rng(5)
+    q = np.zeros((8, 6), np.float32)
+    qd = np.zeros((8, 6), np.float32)
+    q[:, 2] = rng.uniform(0.45, 0.65, 8)
+    q[:, 4] = rng.uniform(-0.2, 0.2, 8)
+    qd[:, 5] = -rng.uniform(0.5, 1.5, 8)
+    solver = LandingSolver("eeparam", n_knots=10, structured=False, device="cuda")
+    (g_seen, g_count, g_ss), (e_seen, e_count, e_ss) = _graph_and_eager_runs(
+        lambda: StreamingSolver(solver, batch=8, segment=25, sampler=lambda n: (q[:n], qd[:n]),
+                                attempt_iters=(25,)), 8)
+    assert len(g_seen) == len(e_seen) == 1 and e_seen[0][0][0, :8].sum() == 8
+    for (g_res, g_z), (e_res, e_z) in zip(g_seen, e_seen, strict=True):
+        np.testing.assert_array_equal(g_res, e_res)
+        assert torch.equal(g_z, e_z)
+    assert g_count["stream.graph_captures"] == 1 and g_count["stream.graph_replays"] == 25
+    assert e_count["stream.graph_captures"] == 0 and e_count["stream.eager_iterations"] == 25
+    for name in ("ip.iterations", "stream.finished", "dense_kkt.emergency", "dense_kkt.lane_iterations"):
+        assert g_count[name] == e_count[name], name
+    assert e_count["dense_kkt.lane_iterations"] == 8 * 25
+
+
+def test_eeparam_graph_counts_emergency_shifts_on_the_device(dev):
+    """``dense_kkt.emergency`` summed on the device inside the captured
+    iteration and read with the stream's one read per segment: with a ladder
+    whose one shift (-1, below every equilibrated Hessian's least eigenvalue)
+    never factors, every lane-iteration takes the emergency shift, and the
+    graph run and the eager run both count 8 lanes x 25 iterations (the
+    capture's warm-up iterations taken back)."""
+    import dataclasses
+
+    from landing_controller_tpu_torch import LandingSolver, StreamingSolver
+    from landing_controller_tpu_torch.api import _eeparam_ip_config
+
+    rng = np.random.default_rng(6)
+    q = np.zeros((8, 6), np.float32)
+    qd = np.zeros((8, 6), np.float32)
+    q[:, 2] = rng.uniform(0.45, 0.65, 8)
+    q[:, 4] = rng.uniform(-0.2, 0.2, 8)
+    qd[:, 5] = -rng.uniform(0.5, 1.5, 8)
+    cfg = dataclasses.replace(_eeparam_ip_config(torch.float32), delta_w=-1.0, ladder_scales=(0.0,))
+    solver = LandingSolver("eeparam", n_knots=10, config=cfg, device="cuda")
+    (g_seen, g_count, _), (e_seen, e_count, _) = _graph_and_eager_runs(
+        lambda: StreamingSolver(solver, batch=8, segment=25, sampler=lambda n: (q[:n], qd[:n]),
+                                attempt_iters=(25,)), 8)
+    for (g_res, g_z), (e_res, e_z) in zip(g_seen, e_seen, strict=True):
+        np.testing.assert_array_equal(g_res, e_res)
+        assert torch.equal(g_z, e_z)
+    assert g_count["stream.graph_replays"] == 25 and e_count["stream.eager_iterations"] == 25
+    for c in (g_count, e_count):
+        assert c["dense_kkt.emergency"] == c["dense_kkt.lane_iterations"] == 8 * 25
+
+
+def test_dense_stream_graph_replays_match_the_eager_iterations(dev):
+    """The captured iteration of a landing kind on the dense KKT step
+    (``kinodynamic_voltage``, which always takes it), replayed, gives what
+    its eager iterations give: B=8 lanes over a pool of 12 with deadlines
+    (10, 10) and segments of 5, so that lanes time out, retry and are
+    refilled.  The rows agree exactly (finished, converged, iterations,
+    attempts) and to 1e-5 relative (violation), the lanes' z to 1e-5
+    relative after every segment, and the counters read the same."""
+    from landing_controller_tpu_torch import LandingSolver
+    from landing_controller_tpu_torch.bench import bench_stream, make_sampler
+
+    solver = LandingSolver("kinodynamic_voltage", dtype=torch.float32, retry_guess="ballistic",
+                           device="cuda")
+    (g_seen, g_count, g_ss), (e_seen, e_count, e_ss) = _graph_and_eager_runs(
+        lambda: bench_stream(solver, make_sampler(3), batch=8, segment=5, attempt_iters=(10, 10)),
+        12)
+    assert len(g_seen) == len(e_seen) >= 4
+    assert e_seen[-1][0][4, :12].max() == 2  # retried
+    for (g_res, g_z), (e_res, e_z) in zip(g_seen, e_seen, strict=True):
+        np.testing.assert_array_equal(g_res[[0, 1, 2, 4]], e_res[[0, 1, 2, 4]])
+        np.testing.assert_allclose(g_res[3], e_res[3], rtol=1e-5, atol=1e-12)
+        assert float((g_z - e_z).norm()) <= 1e-5 * float(e_z.norm())
+    assert g_count["stream.graph_captures"] == 1 and len(g_ss._graphs) == 1
+    assert g_count["stream.graph_replays"] == g_count["ip.iterations"] > 0
+    assert e_count["stream.graph_captures"] == 0 and e_ss._graphs == {}
+    for name in ("ip.iterations", "stream.finished", "stream.retried", "dense_kkt.emergency",
+                 "dense_kkt.lane_iterations"):
+        assert g_count[name] == e_count[name], name

@@ -140,7 +140,13 @@ def _kino_solver(n_knots=6, max_iter=60):
                          guess="reference", device="cpu")
 
 
-@pytest.mark.parametrize("make", [_solver, _kino_solver], ids=["srbm_lcp", "kinodynamic"])
+def _voltage_solver(n_knots=4):
+    """The voltage kind, which always takes the dense KKT step."""
+    return LandingSolver("kinodynamic_voltage", n_knots=n_knots, dtype=torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("make", [_solver, _kino_solver, _voltage_solver],
+                         ids=["srbm_lcp", "kinodynamic", "kinodynamic_voltage"])
 def test_second_iteration_makes_no_tensor_from_host_data(make, monkeypatch):
     """After the first iteration (which builds the cached constants), an
     iteration calls neither ``torch.nonzero`` nor ``torch.tensor`` /
