@@ -202,7 +202,11 @@ def _cross(a, b):
 
 
 def _mv(M, v):
-    return (M @ v[..., None])[..., 0]
+    """M v for batches of 3x3 matrices, as a sum of elementwise products: a
+    matmul would run each batch (and its jvp's tangents, over B x n rows) as
+    cuBLAS's batched GEMV, which reads 3x3 operands far below the memory
+    rate."""
+    return (M * v[..., None, :]).sum(-1)
 
 
 class EEParamProblem:

@@ -177,6 +177,20 @@ def _chol_solve(L, b):
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _refine_residual(H0, shift, Je, delta_c, dz, dy, rhs_z, rhs_y):
+    """The residual of the shifted KKT system [[H0 + diag(shift), Je'],
+    [Je, -delta_c]] at (dz, dy): (rhs_z - (H0 + diag(shift)) dz - Je' dy,
+    rhs_y - Je dz + delta_c dy).  The shift is added to the product, so the
+    shifted copy of H0 (B x n x n) is never formed."""
+    r_z = rhs_z - (_mv(H0, dz) + shift * dz + _mv(Je.transpose(1, 2), dy))
+    r_y = rhs_y - (_mv(Je, dz) - delta_c[:, None] * dy)
+    return r_z, r_y
+
+
 def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     """Inertia-corrected Schur-complement KKT solve of B lanes.
 
@@ -246,22 +260,18 @@ def _solve_kkt(H0, Je, rhs_z, rhs_y, delta_last, cfg: IPConfig):
     def ssolve(b):
         return _chol_solve(L_s, (b * dSinv)[..., None])[..., 0] * dSinv
 
-    def mv(M, v):
-        return (M @ v[..., None])[..., 0]
-
-    # the actual shifted matrix, for refinement
-    Hd = H0 + (delta_used[:, None] * dH * dH)[:, :, None] * eye
+    # the diagonal of the actual shift, for refinement
+    shift = delta_used[:, None] * dH * dH
 
     def resolve(rhs_z_v, rhs_y_v):
         with span("newton.solve"):
-            dy_v = ssolve(mv(Je, hsolve(rhs_z_v)) - rhs_y_v)
-            dz_v = hsolve(rhs_z_v - mv(JeT, dy_v))
+            dy_v = ssolve(_mv(Je, hsolve(rhs_z_v)) - rhs_y_v)
+            dz_v = hsolve(rhs_z_v - _mv(JeT, dy_v))
             for _ in range(cfg.refine_steps):
                 # one sweep of iterative refinement on the full KKT system
-                r_z = rhs_z_v - (mv(Hd, dz_v) + mv(JeT, dy_v))
-                r_y = rhs_y_v - (mv(Je, dz_v) - delta_c[:, None] * dy_v)
-                ddy = ssolve(mv(Je, hsolve(r_z)) - r_y)
-                ddz = hsolve(r_z - mv(JeT, ddy))
+                r_z, r_y = _refine_residual(H0, shift, Je, delta_c, dz_v, dy_v, rhs_z_v, rhs_y_v)
+                ddy = ssolve(_mv(Je, hsolve(r_z)) - r_y)
+                ddz = hsolve(r_z - _mv(JeT, ddy))
                 dz_v = dz_v + ddz
                 dy_v = dy_v + ddy
             return dz_v, dy_v

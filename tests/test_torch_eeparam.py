@@ -135,6 +135,30 @@ def test_problem_rows_match_jax():
     torch.testing.assert_close(prob_t.pack(v), z_pert, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rotation_products_equal_the_matmul(dtype):
+    """The rows' 3x3 products (elementwise sums) equal M @ v and so do their
+    forward-mode tangents, with the rows' broadcasting too (a rotation per
+    lane and time against the four hips), to the rounding of three terms."""
+    g = torch.Generator().manual_seed(5)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    def matmul(M, v):
+        return (M @ v[..., None])[..., 0]
+
+    M, v, dM, dv = t(6, 10, 3, 3), t(6, 10, 3), t(6, 10, 3, 3), t(6, 10, 3)
+    hips = t(4, 3)
+    tol = dict(rtol=0, atol=8 * torch.finfo(dtype).eps * 10)
+    torch.testing.assert_close(t_ee._mv(M, v), matmul(M, v), **tol)
+    torch.testing.assert_close(t_ee._mv(M[..., None, :, :], hips), matmul(M[..., None, :, :], hips),
+                               **tol)
+    for got, want in zip(torch.func.jvp(t_ee._mv, (M, v), (dM, dv)),
+                         torch.func.jvp(matmul, (M, v), (dM, dv))):
+        torch.testing.assert_close(got, want, **tol)
+
+
 def test_solver_settings_match_jax():
     for tdt, jdt in ((torch.float32, jnp.float32), (torch.float64, jnp.float64)):
         ours = dataclasses.asdict(EEParamSolver(dtype=tdt, device="cpu").config)
